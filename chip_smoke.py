@@ -1,0 +1,337 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's main path on one NVIDIA card and check it.
+
+    python3 chip_smoke.py
+
+Run from the root of a checkout on a host with one CUDA card. Phases, in
+order; any failed check raises and the script exits non-zero:
+
+1. build — compile every CUDA kernel of the path from
+   ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, all started
+   together); print the build seconds and the card's name and power limit.
+2. kernels — each kernel against its plain PyTorch version on the card,
+   over the shape sweep of ``tests/test_kernels.py`` plus the main path's
+   shapes, on an empty frontier, tie-heavy unit weights and random inputs
+   with inactive entries: ``w`` and ``c`` bitwise, ``m`` within rtol 1e-6,
+   ``p`` within rtol 1e-5. Then each kernel, its plain version and the
+   SP-DAG child count are timed with CUDA events at the main path's shapes.
+3. main path — exact betweenness of a weighted R-MAT graph at scale 12
+   (edge factor 16, Graph500 quadrant mix, integer weights in [1, 100],
+   isolated vertices removed) through ``repro_torch.core.mfbc.mfbc`` on the
+   card, counting each kernel's launches; λ over the first 64 sources is
+   held against the numpy Brandes oracle (rtol 1e-5, atol 1e-8) and against
+   the same batch run with the plain versions on the card.
+4. scale 14 — one 64-source batch of a weighted scale-14 R-MAT graph: its
+   seconds, peak device memory, and λ over its first 8 sources against the
+   oracle.
+
+The line before the last is one JSON object with each kernel's launches,
+error, times and bound; the last line is
+``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
+"""
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+if not torch.cuda.is_available():
+    sys.exit("chip_smoke: no CUDA device is available")
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "src"))
+
+from repro_torch.core import monoids  # noqa: E402
+from repro_torch.core.adjacency import DenseAdj, dense_adj_from_graph  # noqa: E402
+from repro_torch.core.brandes_ref import brandes_bc  # noqa: E402
+from repro_torch.core.mfbc import mfbc, mfbc_batch  # noqa: E402
+from repro_torch.graphs.generators import rmat  # noqa: E402
+from repro_torch.kernels import _build, ref  # noqa: E402
+from repro_torch.kernels.centpath_mm import centpath_matmul_cuda  # noqa: E402
+from repro_torch.kernels.tropical_mm import multpath_matmul_cuda  # noqa: E402
+
+INF = float("inf")
+DEV = torch.device("cuda")
+# H100 SXM data-sheet peaks: float32 outside the tensor cores, HBM3 rate.
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
+SWEEP = [(8, 16, 16), (8, 128, 128), (16, 200, 136), (128, 128, 256),
+         (1, 64, 300), (130, 257, 129), (64, 4096, 4096)]
+KERNELS = {
+    "multpath_mm": dict(
+        wrapper=multpath_matmul_cuda, plain=ref.multpath_matmul_ref,
+        source="src/repro_torch/kernels/csrc/multpath_mm.cu",
+        replaces="src/repro/kernels/tropical_mm.py:63", n_out=2,
+        # (field, rtol); rtol None = bitwise
+        fields=(("w", None), ("m", 1e-6))),
+    "centpath_mm": dict(
+        wrapper=centpath_matmul_cuda, plain=ref.centpath_matmul_ref,
+        source="src/repro_torch/kernels/csrc/centpath_mm.cu",
+        replaces="src/repro/kernels/centpath_mm.py:60", n_out=3,
+        fields=(("w", None), ("p", 1e-5), ("c", None))),
+}
+
+
+def log(msg: str) -> None:
+    print(f"[smoke] {msg}", flush=True)
+
+
+def reset_counts() -> None:
+    for k in KERNELS.values():
+        k["wrapper"].launches = 0
+
+
+def counts() -> dict:
+    return {name: k["wrapper"].launches for name, k in KERNELS.items()}
+
+
+def inputs(kind: str, which: str, nb: int, n: int, n2: int,
+           gen: torch.Generator):
+    """(fw, f2, adjacency) on the card for one kernel and input kind."""
+    def ints(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=gen, device=DEV
+                             ).float()
+
+    def rand(shape):
+        return torch.rand(shape, generator=gen, device=DEV)
+
+    adj = torch.where(rand((n, n2)) < 0.3, ints(1, 10, (n, n2)), INF)
+    off = INF if which == "multpath_mm" else -INF
+    if kind == "empty":
+        return torch.full((nb, n), off, device=DEV), \
+            torch.zeros(nb, n, device=DEV), adj
+    if kind == "ties":  # complete structure, unit weights: every path ties
+        fw = torch.full((nb, n), 1.0 if off > 0 else 10.0, device=DEV)
+        return fw, torch.full((nb, n), 2.0 if off > 0 else 0.5,
+                              device=DEV), torch.ones(n, n2, device=DEV)
+    active = rand((nb, n)) < 0.5
+    fw = torch.where(active, ints(0, 20, (nb, n)), off)
+    f2 = (ints(1, 5, (nb, n)) if off > 0 else rand((nb, n)))
+    return fw, torch.where(active, f2, 0.0), adj
+
+
+def max_abs_err(x: torch.Tensor, y: torch.Tensor) -> float:
+    d = torch.where(x == y, 0.0, (x - y).abs())
+    return float(d.max()) if d.numel() else 0.0
+
+
+def compare(name: str, got, want, where: str) -> float:
+    """Hold a kernel's outputs against its plain version's; return the
+    largest absolute difference."""
+    err = 0.0
+    for (field, rtol), x, y in zip(KERNELS[name]["fields"], got, want):
+        if rtol is None:
+            if not torch.equal(x, y):
+                raise AssertionError(f"{name} {where}: {field} not bitwise "
+                                     f"equal (max |d| {max_abs_err(x, y)})")
+        else:
+            torch.testing.assert_close(x, y, rtol=rtol, atol=0.0,
+                                       msg=lambda m: f"{name} {where} "
+                                       f"{field}: {m}")
+        err = max(err, max_abs_err(x, y))
+    return err
+
+
+def time_ms(fn, iters: int, warmup: int = 2) -> float:
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound(name: str, nb: int, n: int, n2: int):
+    """(bound_ms, bound_by): one ⊗ and one ⊕ per candidate cell at the
+    float32 peak, against each input read once and each output written
+    once at the memory peak."""
+    ops = 2.0 * nb * n * n2
+    nbytes = 4.0 * (2 * nb * n + n * n2 + KERNELS[name]["n_out"] * nb * n2)
+    t_ops, t_bytes = ops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+class PlainDenseAdj(DenseAdj):
+    """``DenseAdj`` whose relaxations run the plain PyTorch k-scan on the
+    card: the yardstick for one batch of the main path."""
+
+    def relax_mp(self, F):
+        return monoids.multpath_relax_dense(F, self.a, block=self.block)
+
+    def relax_cp(self, F):
+        return monoids.centpath_relax_dense(F, self.at, block=self.block)
+
+
+def graph(scale: int):
+    g, _ = rmat(scale, 16, seed=0, weighted=True, max_weight=100
+                ).remove_isolated()
+    return g
+
+
+def main() -> None:
+    kind = torch.cuda.get_device_name(0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    print(f"[smoke] nvidia-smi: {smi}", flush=True)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind}")
+
+    # 1. build
+    t0 = time.perf_counter()
+    build_logs = _build.build_all()
+    log(f"build: {time.perf_counter() - t0:.2f}s "
+        f"({', '.join(build_logs) or 'cached'})")
+    for name, out in build_logs.items():
+        for line in out.strip().splitlines():
+            log(f"nvcc {name}: {line}")
+
+    # 2. kernels against their plain versions
+    g12 = graph(12)
+    n12 = g12.n
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(0)
+    errs = {name: 0.0 for name in KERNELS}
+    for nb, n, n2 in SWEEP + [(64, n12, n12)]:
+        for kind_in in ("empty", "ties", "random"):
+            for name, k in KERNELS.items():
+                fw, f2, adj = inputs(kind_in, name, nb, n, n2, gen)
+                got = k["wrapper"](fw, f2, adj)
+                torch.cuda.synchronize()
+                want = k["plain"](fw, f2, adj)
+                errs[name] = max(errs[name], compare(
+                    name, got, want, f"{kind_in} {(nb, n, n2)}"))
+                del fw, f2, adj, got, want
+        log(f"kernels match plain at {(nb, n, n2)} (empty, ties, random)")
+    torch.cuda.empty_cache()
+
+    # timing at the main path's shapes: the scale-12 adjacency and a real
+    # first frontier (sources 0..63) for multpath; Aᵀ and a random centpath
+    # frontier for centpath. Each product reads A from L2, as in the loop.
+    adj12 = dense_adj_from_graph(g12, device=DEV)
+    src = torch.arange(64, device=DEV)
+    f_w = adj12.gather_rows(src)
+    f_m = torch.isfinite(f_w).float()
+    active = torch.rand((64, n12), generator=gen, device=DEV) < 0.5
+    c_w = torch.where(active, torch.randint(0, 20, (64, n12), generator=gen,
+                                            device=DEV).float(), -INF)
+    c_p = torch.where(active, torch.rand((64, n12), generator=gen,
+                                         device=DEV), 0.0)
+    args = {"multpath_mm": (f_w, f_m, adj12.a),
+            "centpath_mm": (c_w, c_p, adj12.at)}
+    timing = {}
+    for name, k in KERNELS.items():
+        a = args[name]
+        ms = time_ms(lambda: k["wrapper"](*a), iters=50)
+        plain_ms = time_ms(lambda: k["plain"](*a), iters=5, warmup=1)
+        b_ms, b_by = bound(name, 64, n12, n12)
+        timing[name] = (ms, plain_ms, b_ms, b_by)
+        log(f"time {name} (64, {n12}, {n12}): kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+            f"{100 * b_ms / ms:.1f}% of bound")
+    for name, k in KERNELS.items():  # a square reference shape
+        fw, f2, adj = inputs("random", name, 64, 4096, 4096, gen)
+        ms = time_ms(lambda: k["wrapper"](fw, f2, adj), iters=50)
+        plain_ms = time_ms(lambda: k["plain"](fw, f2, adj), iters=5,
+                           warmup=1)
+        b_ms, b_by = bound(name, 64, 4096, 4096)
+        log(f"time {name} (64, 4096, 4096): kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        del fw, f2, adj
+    Tw12, _ = mfbc_batch(adj12, src, torch.ones(64, dtype=torch.bool,
+                                                 device=DEV))[1:]
+    csc_ms = time_ms(lambda: adj12.count_sp_children(Tw12), iters=10)
+    log(f"time count_sp_children (plain, 64 x {n12}, block "
+        f"{adj12.block}): {csc_ms:.4f} ms")
+    del args, f_w, f_m, c_w, c_p, Tw12
+    torch.cuda.empty_cache()
+
+    # 3. main path: exact BC at scale 12 through the kernels
+    log(f"main path: rmat scale 12 weighted: n={g12.n} m={g12.m}")
+    batch0 = {}
+
+    def progress(b, n_batches, lam):
+        if b == 0:
+            batch0["lam"] = lam.copy()
+
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lam = mfbc(g12, n_b=64, device="cuda", progress_cb=progress)
+    dt = time.perf_counter() - t0
+    launches = counts()
+    n_batches = -(-g12.n // 64)
+    log(f"main path: {n_batches} batches in {dt:.3f}s, "
+        f"{g12.m * g12.n / dt:,.0f} TEPS (model), launches {launches}")
+    if not all(v > 0 for v in launches.values()):
+        raise AssertionError(f"a kernel of the path never ran: {launches}")
+    if lam.shape != (g12.n,) or not np.all(np.isfinite(lam)):
+        raise AssertionError("λ is not finite of shape (n,)")
+    t0 = time.perf_counter()
+    lam_ref = brandes_bc(g12, sources=np.arange(64))
+    log(f"oracle: 64 sources in {time.perf_counter() - t0:.1f}s (CPU)")
+    np.testing.assert_allclose(batch0["lam"], lam_ref, rtol=1e-5, atol=1e-8)
+    log("main path: λ over sources 0..63 matches brandes_bc "
+        "(rtol 1e-5, atol 1e-8)")
+    plain = PlainDenseAdj(adj12.a, adj12.at, adj12.block)
+    lam_plain = mfbc_batch(plain, src, torch.ones(64, dtype=torch.bool,
+                                                  device=DEV))[0]
+    np.testing.assert_allclose(batch0["lam"],
+                               lam_plain.cpu().numpy().astype(np.float64),
+                               rtol=1e-5, atol=1e-8)
+    log("main path: batch 0 λ_partial matches the plain versions on the card")
+    del adj12, plain, lam_plain
+    torch.cuda.empty_cache()
+
+    # 4. one 64-source batch at scale 14
+    g14 = graph(14)
+    log(f"scale 14: rmat weighted: n={g14.n} m={g14.m}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    adj14 = dense_adj_from_graph(g14, device=DEV)
+    torch.cuda.synchronize()
+    t_adj = time.perf_counter() - t0
+    valid = torch.zeros(64, dtype=torch.bool, device=DEV)
+    valid[:8] = True  # all 64 sources run; λ keeps the first 8
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lam8 = mfbc_batch(adj14, src, valid)[0].cpu().numpy().astype(np.float64)
+    dt14 = time.perf_counter() - t0
+    launches14 = counts()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"scale 14: adjacency upload {t_adj:.3f}s, one 64-source batch "
+        f"{dt14:.3f}s, launches {launches14}, peak device memory "
+        f"{peak / 2**30:.2f} GiB")
+    if not all(v > 0 for v in launches14.values()):
+        raise AssertionError(f"a kernel never ran at scale 14: {launches14}")
+    t0 = time.perf_counter()
+    ref8 = brandes_bc(g14, sources=np.arange(8))
+    log(f"oracle: 8 sources in {time.perf_counter() - t0:.1f}s (CPU)")
+    np.testing.assert_allclose(lam8, ref8, rtol=1e-5, atol=1e-8)
+    log("scale 14: λ over sources 0..7 matches brandes_bc")
+
+    print(json.dumps({"kernels": [
+        {"name": name, "route": "cuda", "source": k["source"],
+         "replaces": k["replaces"], "launches": launches[name],
+         "max_abs_err": errs[name], "ms": timing[name][0],
+         "plain_ms": timing[name][1], "bound_ms": timing[name][2],
+         "bound_by": timing[name][3], "library_ms": None}
+        for name, k in KERNELS.items()]}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

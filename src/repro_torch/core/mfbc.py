@@ -1,0 +1,108 @@
+"""MFBC — combined betweenness centrality driver (paper Algorithm 3).
+
+``λ(v) = Σ_s ζ(s, v) · σ̄(s, v)`` accumulated over ``⌈n / n_b⌉`` source
+batches. Each batch runs MFBF, the t = s self-mask and MFBr on the device;
+the batch loop and the float64 λ accumulator live on the host.
+
+Only the exact dense path is ported. The moments, segmented, traced and
+metric entry points of ``repro.core.mfbc`` wait for later slices.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.core import mfbf as _mfbf
+from repro_torch.core import mfbr as _mfbr
+from repro_torch.core.adjacency import dense_adj_from_graph
+from repro_torch.core.monoids import INF
+from repro_torch.graphs.formats import Graph
+
+
+def _batch_contrib(adj, sources: torch.Tensor, valid: torch.Tensor, *,
+                   iterate: str, max_iters_bf: int, max_iters_br: int):
+    """Shared Algorithm 3 batch body: per-source contributions δ_s(v).
+
+    Returns (contrib, mask, Tw, Tm) with contrib (nb, n) zeroed on
+    unreachable/padding entries.
+    """
+    Tw, Tm = _mfbf.mfbf(adj, sources, iterate=iterate, max_iters=max_iters_bf)
+    # Exclude the t = s destination (σ(s, t, v) = 0 when t = s): mask the
+    # source's own column to (∞, 1) — the 1 keeps reciprocals safe. Tw and
+    # Tm are fresh tensors of this batch, so they are written in place.
+    rows = torch.arange(sources.shape[0], device=Tw.device)
+    Tw[rows, sources.long()] = INF
+    Tm[rows, sources.long()] = 1.0
+    Zp = _mfbr.mfbr(adj, Tw, Tm, iterate=iterate, max_iters=max_iters_br)
+    mask = torch.isfinite(Tw) & valid[:, None]
+    contrib = torch.where(mask, Zp * Tm, 0.0)
+    return contrib, mask, Tw, Tm
+
+
+def mfbc_batch(adj, sources: torch.Tensor, valid: torch.Tensor, *,
+               iterate: str = "while", max_iters_bf: int = 0,
+               max_iters_br: int = 0
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One batch of Algorithm 3: returns (λ_partial, Tw, Tm).
+
+    valid: (nb,) bool — False for padding sources (contribute nothing).
+    """
+    contrib, _, Tw, Tm = _batch_contrib(adj, sources, valid, iterate=iterate,
+                                        max_iters_bf=max_iters_bf,
+                                        max_iters_br=max_iters_br)
+    return contrib.sum(dim=0), Tw, Tm
+
+
+def mfbc(g: Graph, *, n_b: Optional[int] = None, backend: str = "dense",
+         iterate: str = "while", max_iters: int = 0, block: int = 512,
+         sources: Optional[np.ndarray] = None, progress_cb=None,
+         device="cuda") -> np.ndarray:
+    """Full betweenness centrality of a host graph.
+
+    Args:
+      g: host COO graph (positive weights).
+      n_b: batch size (paper's memory/time tradeoff). Default min(n, 64).
+      backend: "dense" only; the sparse backends are not ported yet.
+      iterate: "while" | "fori" (fixed ``max_iters`` iterations).
+      max_iters: iteration bound for "fori" (default n-1).
+      block: u-block of the SP-DAG child count.
+      sources: optionally restrict to these sources (approximate BC).
+      progress_cb: optional callback(batch_idx, n_batches, lam_partial)
+        — the checkpoint hook.
+      device: "cuda" (default; raises if there is no card) or "cpu".
+
+    Returns:
+      λ: (n,) float64 centrality scores (ordered-pair convention, endpoints
+      excluded — matches the paper's λ definition).
+    """
+    if backend != "dense":
+        raise NotImplementedError(
+            f"backend {backend!r} is not ported yet: the COO and CSR "
+            "backends are slice 3 of ROADMAP.md")
+    dev = resolve_device(device)
+    n = g.n
+    if n_b is None:
+        n_b = min(n, 64)
+    adj = dense_adj_from_graph(g, block=block, device=dev)
+    all_sources = np.arange(n, dtype=np.int32) if sources is None \
+        else np.asarray(sources, dtype=np.int32)
+    n_batches = -(-all_sources.shape[0] // n_b)
+    lam = np.zeros(n, dtype=np.float64)
+    for b in range(n_batches):
+        chunk = all_sources[b * n_b:(b + 1) * n_b]
+        valid = np.ones(chunk.shape[0], dtype=bool)
+        if chunk.shape[0] < n_b:  # pad the ragged tail (paper's n mod n_b trick)
+            pad = n_b - chunk.shape[0]
+            chunk = np.concatenate([chunk, np.zeros(pad, np.int32)])
+            valid = np.concatenate([valid, np.zeros(pad, bool)])
+        lam_b, _, _ = mfbc_batch(adj, torch.from_numpy(chunk).to(dev),
+                                 torch.from_numpy(valid).to(dev),
+                                 iterate=iterate, max_iters_bf=max_iters,
+                                 max_iters_br=max_iters)
+        lam += lam_b.cpu().numpy().astype(np.float64)
+        if progress_cb is not None:
+            progress_cb(b, n_batches, lam)
+    return lam

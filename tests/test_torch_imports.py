@@ -1,0 +1,66 @@
+"""The PyTorch port stands alone and never runs quietly on the CPU.
+
+* Importing every module of ``repro_torch`` loads neither jax nor any module
+  of ``repro`` (checked in a fresh interpreter).
+* No source of the port, nor ``chip_smoke.py``, names jax or ``repro``.
+* The entry points default to the card and raise on a host without one.
+"""
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch.core.adjacency import dense_adj_from_graph
+from repro_torch.core.mfbc import mfbc
+from repro_torch.graphs.generators import path_graph
+from repro_torch.launch import bc_run
+
+REPO = Path(__file__).resolve().parents[1]
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+import repro_torch, repro_torch.launch.bc_run, repro_torch.kernels.ops
+for mod in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
+    importlib.import_module(mod.name)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+assert not bad, bad
+print("OK", len([m for m in sys.modules if m.startswith("repro_torch")]))
+"""
+
+_BANNED = re.compile(r"^\s*(?:import|from)\s+(?:jax|repro)\b", re.MULTILINE)
+
+
+def test_port_loads_neither_jax_nor_repro():
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("OK")
+
+
+def test_port_sources_name_neither_jax_nor_repro():
+    files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
+    files.append(REPO / "chip_smoke.py")
+    hits = [f"{f.relative_to(REPO)}: {m.group(0).strip()}"
+            for f in files for m in _BANNED.finditer(f.read_text())]
+    assert not hits
+    # the pattern itself: it catches both packages, not the port's own name
+    assert _BANNED.search("from repro.core import mfbc")
+    assert _BANNED.search("import jax.numpy as jnp")
+    assert not _BANNED.search("from repro_torch.core import mfbc")
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    g = path_graph(6)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mfbc(g)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dense_adj_from_graph(g)
+    with pytest.raises(SystemExit, match="--device cpu"):
+        bc_run.main(["--scale", "3"])
