@@ -13,8 +13,12 @@ order; any failed check raises and the script exits non-zero:
    over the shape sweep of ``tests/test_kernels.py`` plus the main path's
    shapes, on an empty frontier, tie-heavy unit weights and random inputs
    with inactive entries: ``w`` and ``c`` bitwise, ``m`` within rtol 1e-6,
-   ``p`` within rtol 1e-5. Then each kernel, its plain version and the
-   SP-DAG child count are timed with CUDA events at the main path's shapes.
+   ``p`` within rtol 1e-5. The sweep includes shapes that split the
+   contraction (split-K) and one whose k is shorter than a slice. Two
+   launches of each kernel on the same inputs must agree bitwise. Then
+   each kernel, its plain version and the SP-DAG child count are timed
+   with CUDA events at the main path's shapes, with each kernel's grid and
+   split count S.
 3. main path — exact betweenness of a weighted R-MAT graph at scale 12
    (edge factor 16, Graph500 quadrant mix, integer weights in [1, 100],
    isolated vertices removed) through ``repro_torch.core.mfbc.mfbc`` on the
@@ -23,7 +27,7 @@ order; any failed check raises and the script exits non-zero:
    the same batch run with the plain versions on the card.
 4. scale 14 — one 64-source batch of a weighted scale-14 R-MAT graph: its
    seconds, peak device memory, and λ over its first 8 sources against the
-   oracle.
+   oracle; then each kernel alone is timed at (64, 12536, 12536).
 
 The line before the last is one JSON object with each kernel's launches,
 error, times and bound; the last line is
@@ -53,15 +57,20 @@ from repro_torch.core.mfbc import mfbc, mfbc_batch  # noqa: E402
 from repro_torch.graphs.generators import rmat  # noqa: E402
 from repro_torch.kernels import _build, ref  # noqa: E402
 from repro_torch.kernels.centpath_mm import centpath_matmul_cuda  # noqa: E402
-from repro_torch.kernels.tropical_mm import multpath_matmul_cuda  # noqa: E402
+from repro_torch.kernels.tropical_mm import (BM, BN,  # noqa: E402
+                                             multpath_matmul_cuda,
+                                             pick_splits, sm_count)
 
 INF = float("inf")
 DEV = torch.device("cuda")
-# H100 SXM data-sheet peaks: float32 outside the tensor cores, HBM3 rate.
-PEAK_F32_FLOPS = 67e12
+# H100 SXM: instruction issue outside the tensor cores (132 SMs x 4
+# schedulers x 32 lanes x 1.98 GHz boost) and the HBM3 data-sheet rate.
+PEAK_INSTR_PER_S = 33.5e12
 PEAK_BYTES_PER_S = 3.35e12
 SWEEP = [(8, 16, 16), (8, 128, 128), (16, 200, 136), (128, 128, 256),
-         (1, 64, 300), (130, 257, 129), (64, 4096, 4096)]
+         (1, 64, 300), (130, 257, 129), (64, 4096, 4096),
+         # split-K: k shorter than one slice, and a single row
+         (64, 17, 1000), (1, 5000, 64)]
 KERNELS = {
     "multpath_mm": dict(
         wrapper=multpath_matmul_cuda, plain=ref.multpath_matmul_ref,
@@ -152,14 +161,42 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
 
 
 def bound(name: str, nb: int, n: int, n2: int):
-    """(bound_ms, bound_by): one ⊗ and one ⊕ per candidate cell at the
-    float32 peak, against each input read once and each output written
-    once at the memory peak."""
-    ops = 2.0 * nb * n * n2
+    """(bound_ms, bound_by): the instruction floor against the bytes.
+
+    A min-plus or max-minus cell on float32 takes at least two
+    instructions, an add and a min/max: neither has a tensor-core form,
+    and Hopper's fused add-min (DPX) takes integers only. The data sheet's
+    67 TFLOP/s float32 counts an FFMA as two operations per instruction,
+    so dividing 2·nb·n·n2 operations by it halved the floor; the floor is
+    2·nb·n·n2 instructions at the card's issue rate. Against it, each
+    input read once and each output written once at the memory peak."""
+    instr = 2.0 * nb * n * n2
     nbytes = 4.0 * (2 * nb * n + n * n2 + KERNELS[name]["n_out"] * nb * n2)
-    t_ops, t_bytes = ops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    t_ops, t_bytes = instr / PEAK_INSTR_PER_S, nbytes / PEAK_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
+
+
+def launch_shape(nb: int, n: int, n2: int) -> str:
+    """The grid and split count S the wrappers launch at this shape."""
+    splits = pick_splits(nb, n, n2, sm_count(0))
+    grid = (-(-n2 // BN), -(-nb // BM), splits)
+    return f"grid {grid}, S={splits}, {grid[0] * grid[1] * splits} blocks"
+
+
+def time_kernel(name: str, args, shape, with_plain: bool = True):
+    """Time one kernel (and its plain version) at ``shape``; log it with
+    its bound, grid and S. Returns (ms, plain_ms or None, bound_ms, by)."""
+    k = KERNELS[name]
+    ms = time_ms(lambda: k["wrapper"](*args), iters=50)
+    plain_ms = (time_ms(lambda: k["plain"](*args), iters=5, warmup=1)
+                if with_plain else None)
+    b_ms, b_by = bound(name, *shape)
+    plain = f"plain {plain_ms:.4f} ms, " if with_plain else ""
+    log(f"time {name} {tuple(shape)}: kernel {ms:.4f} ms, {plain}bound "
+        f"{b_ms:.4f} ms ({b_by}), {100 * b_ms / ms:.1f}% of bound; "
+        f"{launch_shape(*shape)}")
+    return ms, plain_ms, b_ms, b_by
 
 
 class PlainDenseAdj(DenseAdj):
@@ -202,7 +239,7 @@ def main() -> None:
     gen = torch.Generator(device=DEV)
     gen.manual_seed(0)
     errs = {name: 0.0 for name in KERNELS}
-    for nb, n, n2 in SWEEP + [(64, n12, n12)]:
+    for nb, n, n2 in SWEEP + [(64, n12, n12)]:  # n12 = 3342
         for kind_in in ("empty", "ties", "random"):
             for name, k in KERNELS.items():
                 fw, f2, adj = inputs(kind_in, name, nb, n, n2, gen)
@@ -229,24 +266,20 @@ def main() -> None:
                                          device=DEV), 0.0)
     args = {"multpath_mm": (f_w, f_m, adj12.a),
             "centpath_mm": (c_w, c_p, adj12.at)}
-    timing = {}
-    for name, k in KERNELS.items():
-        a = args[name]
-        ms = time_ms(lambda: k["wrapper"](*a), iters=50)
-        plain_ms = time_ms(lambda: k["plain"](*a), iters=5, warmup=1)
-        b_ms, b_by = bound(name, 64, n12, n12)
-        timing[name] = (ms, plain_ms, b_ms, b_by)
-        log(f"time {name} (64, {n12}, {n12}): kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
-            f"{100 * b_ms / ms:.1f}% of bound")
-    for name, k in KERNELS.items():  # a square reference shape
+    for name, k in KERNELS.items():  # split-K folds in order: repeatable
+        first = k["wrapper"](*args[name])
+        second = k["wrapper"](*args[name])
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(first, second)):
+            raise AssertionError(f"{name}: two launches on the same inputs "
+                                 "differ")
+        del first, second
+    log(f"kernels bitwise repeatable at (64, {n12}, {n12})")
+    timing = {name: time_kernel(name, args[name], (64, n12, n12))
+              for name in KERNELS}
+    for name in KERNELS:  # a square reference shape
         fw, f2, adj = inputs("random", name, 64, 4096, 4096, gen)
-        ms = time_ms(lambda: k["wrapper"](fw, f2, adj), iters=50)
-        plain_ms = time_ms(lambda: k["plain"](fw, f2, adj), iters=5,
-                           warmup=1)
-        b_ms, b_by = bound(name, 64, 4096, 4096)
-        log(f"time {name} (64, 4096, 4096): kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        time_kernel(name, (fw, f2, adj), (64, 4096, 4096))
         del fw, f2, adj
     Tw12, _ = mfbc_batch(adj12, src, torch.ones(64, dtype=torch.bool,
                                                  device=DEV))[1:]
@@ -320,6 +353,17 @@ def main() -> None:
     log(f"oracle: 8 sources in {time.perf_counter() - t0:.1f}s (CPU)")
     np.testing.assert_allclose(lam8, ref8, rtol=1e-5, atol=1e-8)
     log("scale 14: λ over sources 0..7 matches brandes_bc")
+
+    # each kernel alone at scale 14's shape: A (0.63 GB) exceeds the L2
+    n14 = g14.n
+    f_w = adj14.gather_rows(src)
+    c_w = torch.where(torch.rand((64, n14), generator=gen, device=DEV) < 0.5,
+                      torch.randint(0, 20, (64, n14), generator=gen,
+                                    device=DEV).float(), -INF)
+    args14 = {"multpath_mm": (f_w, torch.isfinite(f_w).float(), adj14.a),
+              "centpath_mm": (c_w, torch.isfinite(c_w).float(), adj14.at)}
+    for name in KERNELS:
+        time_kernel(name, args14[name], (64, n14, n14), with_plain=False)
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": k["source"],

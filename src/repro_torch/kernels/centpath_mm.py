@@ -1,10 +1,10 @@
 """Wrapper for the Hopper centpath kernel (the MFBr Brandes action).
 
 ``centpath_matmul_cuda`` launches ``csrc/centpath_mm.cu`` (design notes in
-the source) on CUDA tensors and nothing else, with the same checks as
-``tropical_mm.multpath_matmul_cuda``, and counts its launches in
-``centpath_matmul_cuda.launches``. Its plain PyTorch version is
-``repro_torch.kernels.ref.centpath_matmul_ref``.
+the source) on CUDA tensors and nothing else, with the same checks, split
+count and scratch as ``tropical_mm.multpath_matmul_cuda``, and counts its
+launches in ``centpath_matmul_cuda.launches``. Its plain PyTorch version
+is ``repro_torch.kernels.ref.centpath_matmul_ref``.
 """
 from __future__ import annotations
 
@@ -13,9 +13,30 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.tropical_mm import check_operands
+from repro_torch.kernels.tropical_mm import (check_operands, pick_splits,
+                                             scratch_ptr, sm_count)
 
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+             + [ctypes.c_void_p])
+
+
+def centpath_launch(fw: torch.Tensor, fp: torch.Tensor, b: torch.Tensor,
+                    splits: int):
+    """Launch ``csrc/centpath_mm.cu`` with ``splits`` contraction slices
+    on operands that ``check_operands`` passed, nb and n2 > 0. Counts
+    nothing: ``centpath_matmul_cuda`` is the entry point."""
+    nb, n = fw.shape
+    n2 = b.shape[1]
+    cw, cp, cc = (torch.empty((nb, n2), dtype=torch.float32,
+                              device=fw.device) for _ in range(3))
+    part, part_ptr = scratch_ptr(fw, n2, 3, splits)
+    fn = _build.function("centpath_mm", _ARGTYPES)
+    rc = fn(fw.data_ptr(), fp.data_ptr(), b.data_ptr(), cw.data_ptr(),
+            cp.data_ptr(), cc.data_ptr(), part_ptr, nb, n, n2, splits,
+            fw.device.index, torch.cuda.current_stream(fw.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"centpath_mm launch failed: cudaError {rc}")
+    return cw, cp, cc
 
 
 def centpath_matmul_cuda(fw: torch.Tensor, fp: torch.Tensor, b: torch.Tensor):
@@ -23,24 +44,18 @@ def centpath_matmul_cuda(fw: torch.Tensor, fp: torch.Tensor, b: torch.Tensor):
 
     Returns (cw, cp, cc): (nb, n2) with ``cw = max_k fw[:, k] - b[k]``
     (inactive or no edge -> -inf) and the tie-summed ``cp`` and counts
-    ``cc``.
+    ``cc``. The contraction is split into ``pick_splits`` slices.
     """
     check_operands((fw, fp), b, "centpath_matmul_cuda")
     nb, n = fw.shape
     n2 = b.shape[1]
-    cw = torch.empty((nb, n2), dtype=torch.float32, device=fw.device)
-    cp = torch.empty((nb, n2), dtype=torch.float32, device=fw.device)
-    cc = torch.empty((nb, n2), dtype=torch.float32, device=fw.device)
     if nb == 0 or n2 == 0:
-        return cw, cp, cc
-    fn = _build.function("centpath_mm", _ARGTYPES)
-    rc = fn(fw.data_ptr(), fp.data_ptr(), b.data_ptr(), cw.data_ptr(),
-            cp.data_ptr(), cc.data_ptr(), nb, n, n2, fw.device.index,
-            torch.cuda.current_stream(fw.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"centpath_mm launch failed: cudaError {rc}")
+        return tuple(torch.empty((nb, n2), dtype=torch.float32,
+                                 device=fw.device) for _ in range(3))
+    out = centpath_launch(fw, fp, b, pick_splits(nb, n, n2,
+                                                 sm_count(fw.device.index)))
     centpath_matmul_cuda.launches += 1
-    return cw, cp, cc
+    return out
 
 
 centpath_matmul_cuda.launches = 0

@@ -7,68 +7,215 @@
 // Replaces the TPU kernel src/repro/kernels/tropical_mm.py
 // ::multpath_matmul_pallas (body _kernel).
 //
-// What bounds it on the H100: min-plus has no tensor-core form, so every
-// candidate cell is CUDA-core work: one add and one min-select with a
-// tie test. Counting one ⊗ and one ⊕ per cell as a GEMM does, a
-// relaxation is 2·nb·n·n2 operations at the card's 67 TFLOP/s float32
-// rate, against (2·nb·n + n·n2 + 2·nb·n2)·4 bytes at 3.35 TB/s. At the
-// main path's nb = 64 the operations bound is the larger (about 1.5x the
-// bytes bound), so the kernel is compute-bound; each cell costs about six
-// instructions (add, two compares, finiteness test, select, min).
+// What bounds it on the H100: instruction issue. Min-plus has no
+// tensor-core (wgmma) form, and Hopper's fused add-min (DPX) takes
+// integers only, so each candidate cell costs at least two float32
+// instructions, an FADD and an FMNMX. The floor is 2·nb·n·n2
+// instructions at 33.5 T per second (132 SMs × 4 schedulers × 32 lanes ×
+// 1.98 GHz); the bytes, (2·nb·n + n·n2 + 2·nb·n2)·4 at 3.35 TB/s, bound
+// it less at the main path's nb = 64. The compares, selects and min
+// (FSETP, FSEL, FMNMX) go to the ALU pipe, half as wide as the FP32 pipe
+// that runs FADD, so the kernel keeps them few: see the two-pass update
+// below (PERF.md has what that bought).
 //
 // What the design does about it:
-// - One block of 128 threads owns a 32x64 output tile; each thread keeps
-//   a 4x4 register micro-tile of (w, m) accumulators, so one k step reads
-//   three float4s from shared memory for 16 cells. The k loop runs inside
-//   the block (it replaces the TPU's sequential k grid axis and its
-//   revisited output block); no state crosses blocks, so there are no
-//   atomics and no second pass.
-// - F's (w, m) tiles (BM x BK, stored k-major) and A's BK x BN tile are
-//   staged in shared memory; the 3-D candidate block never exists.
-// - Ragged edges are masked at the tile load: out-of-range F entries load
-//   as the monoid identity (inf, 0) and out-of-range A entries as inf.
-//   Nothing is padded per call (padding A at n = 12536 would copy about
-//   0.63 GB on every relaxation).
-// - Each thread sweeps k in ascending order, as the TPU kernel does, so w
-//   is bitwise equal to the plain version and m differs only by the
-//   order of the tie sums.
-// - The launch runs on the caller's stream, allocates nothing and returns
-//   cudaGetLastError(). Built without --use_fast_math: the semantics rest
-//   on exact IEEE inf arithmetic and bitwise-equal weights.
+// - Full-batch tiles. A block of 256 threads (8 warps) owns a 64x64
+//   output tile, each thread a 4x4 register micro-tile of (w, m), so at
+//   nb <= 64 every adjacency tile is fetched from device memory once per
+//   call. Larger nb runs more row tiles on grid.y.
+// - Split-K. The output alone is too small to fill 132 SMs at nb = 64
+//   (53 tiles at n = 3342), so the wrapper splits the contraction into S
+//   slices on grid.z (pick_splits in tropical_mm.py). Each slice writes
+//   its (w, m) partial to scratch, and a second kernel folds the partials
+//   in slice order with the monoid's ⊕: no atomics, so the outputs are
+//   bitwise repeatable, w is bitwise equal to the plain version for any S
+//   (min is order-free) and m differs only by the order of the tie sums.
+//   S = 1 writes the outputs directly and launches no fold.
+// - Staging that overlaps compute. F's (w, m) tiles (64 rows x BK, k
+//   contiguous) and A's BK x 64 tile go through a ring of three
+//   shared-memory stages filled by cp.async, two tiles ahead of the one
+//   being consumed, with one barrier per tile. When n, n2 and the
+//   pointers allow it the copies are 16-byte cp.async.cg, else 4-byte
+//   cp.async.ca (a row of n = 3342 floats is not 16-byte aligned).
+//   cp.async's zero fill would write 0, which is not this monoid's
+//   identity, so ragged k, row and column edges are loaded with ordinary
+//   masked loads as (inf, 0) for F and inf for A. Nothing is padded.
+// - Two passes over each staged tile, and no finiteness test per cell.
+//   Pass 1 takes each cell's smallest candidate over the tile's BK steps
+//   (FADD, FMNMX). The merge drops m when that minimum is strictly below
+//   the running w, and lowers w. Pass 2 recomputes the candidates and adds
+//   F.m where one equals the new w (FADD, FSETP, predicated FADD). So a
+//   cell costs five instructions, two of them at the half rate, against
+//   six with three at the half rate for a one-pass update. While w is
+//   still inf, ties at inf may add garbage to m; the first finite minimum
+//   resets it, and each slice's epilogue zeroes m wherever w is not
+//   finite. That is the plain version's result, whose ties exclude
+//   non-finite candidates.
+// - Each thread sweeps its slice's k in ascending order.
+// ptxas (-Xptxas=-v, CUDA 12.8): 128 registers with an 8-byte spill for
+// the 4-byte-copy instance, 114 and no spill for the 16-byte one, 43008
+// bytes of shared memory, so two blocks (16 warps) per SM; the fold 31.
+// Capping the kernel at 80 registers for three blocks per SM spilled
+// more and ran slower.
+// Runs on the caller's stream, allocates nothing (the wrapper passes the
+// scratch), returns cudaGetLastError(). Built without --use_fast_math:
+// the semantics rest on exact IEEE inf arithmetic.
 #include <cuda_runtime.h>
 #include <math_constants.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int BM = 32;    // output rows (batch) per block
-constexpr int BN = 64;    // output columns per block
-constexpr int BK = 16;    // contraction depth per shared-memory tile
-constexpr int TM = 4;     // rows per thread
-constexpr int TN = 4;     // columns per thread
-constexpr int THREADS = (BM / TM) * (BN / TN);  // 128
-constexpr int FPAD = 4;   // keeps the transposed F stores off one bank
+constexpr int BM = 64;   // output rows (batch) per block
+constexpr int BN = 64;   // output columns per block
+constexpr int BK = 16;   // contraction depth per stage
+constexpr int TM = 4;    // rows per thread
+constexpr int TN = 4;    // columns per thread
+constexpr int THREADS = (BM / TM) * (BN / TN);  // 256
+constexpr int STAGES = 3;
+constexpr int FLD = BK + 4;  // F's shared row stride: 16-byte rows, and
+                             // the two rows a warp reads sit 16 banks apart
 
-__device__ __forceinline__ void mp_relax(float& accw, float& accm, float cand,
-                                         float m) {
-  const bool better = cand < accw;
-  const bool tie = (cand == accw) && isfinite(cand);
-  accm = better ? m : (tie ? accm + m : accm);
-  accw = fminf(accw, cand);
+struct Stage {
+  float fw[BM][FLD];
+  float fm[BM][FLD];
+  float a[BK][BN];
+};
+static_assert(BM * BK / 4 == THREADS && BK * BN / 4 == THREADS,
+              "the 16-byte path copies one chunk of each array per thread");
+static_assert(STAGES * sizeof(Stage) <= 48 * 1024, "static shared memory");
+
+__device__ __forceinline__ void cp_async(float* dst, const float* src,
+                                         bool vec) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if (vec) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+                 "l"(src));
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+                 "l"(src));
+  }
 }
 
-__global__ void __launch_bounds__(THREADS)
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Stage k-tile `kt` of F (rows row0..row0+63) and A (columns col0..+63).
+template <bool VEC>
+__device__ __forceinline__ void load_tile(Stage& s, const float* fw,
+                                          const float* fm, const float* a,
+                                          int nb, int n, int n2, int row0,
+                                          int col0, int kt, int tid) {
+  const int k0 = kt * BK;
+  if (VEC) {
+    {  // F: 64 rows x 4 chunks of 4, one chunk of each array per thread
+      const int r = tid / (BK / 4);
+      const int c = (tid % (BK / 4)) * 4;
+      const int gr = row0 + r;
+      const int gk = k0 + c;
+      const size_t off = static_cast<size_t>(gr) * n + gk;
+      if (gr < nb && gk + 3 < n) {
+        cp_async(&s.fw[r][c], fw + off, true);
+        cp_async(&s.fm[r][c], fm + off, true);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool in = gr < nb && gk + e < n;
+          s.fw[r][c + e] = in ? fw[off + e] : CUDART_INF_F;
+          s.fm[r][c + e] = in ? fm[off + e] : 0.f;
+        }
+      }
+    }
+    {  // A: BK rows x 16 chunks of 4, one chunk per thread
+      const int r = tid / (BN / 4);
+      const int c = (tid % (BN / 4)) * 4;
+      const int gk = k0 + r;
+      const int gc = col0 + c;
+      const size_t off = static_cast<size_t>(gk) * n2 + gc;
+      if (gk < n && gc + 3 < n2) {
+        cp_async(&s.a[r][c], a + off, true);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s.a[r][c + e] = (gk < n && gc + e < n2) ? a[off + e]
+                                                  : CUDART_INF_F;
+        }
+      }
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < BM * BK / THREADS; ++i) {
+      const int e = tid + i * THREADS;
+      const int r = e / BK;
+      const int c = e % BK;
+      const int gr = row0 + r;
+      const int gk = k0 + c;
+      const size_t off = static_cast<size_t>(gr) * n + gk;
+      if (gr < nb && gk < n) {
+        cp_async(&s.fw[r][c], fw + off, false);
+        cp_async(&s.fm[r][c], fm + off, false);
+      } else {
+        s.fw[r][c] = CUDART_INF_F;
+        s.fm[r][c] = 0.f;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < BK * BN / THREADS; ++i) {
+      const int e = tid + i * THREADS;
+      const int r = e / BN;
+      const int c = e % BN;
+      const int gk = k0 + r;
+      const int gc = col0 + c;
+      if (gk < n && gc < n2) {
+        cp_async(&s.a[r][c], a + static_cast<size_t>(gk) * n2 + gc, false);
+      } else {
+        s.a[r][c] = CUDART_INF_F;
+      }
+    }
+  }
+}
+
+// A 16-byte shared-memory load that the compiler may not merge with an
+// earlier load of the same address: pass 2 reads the tile again through
+// it, so the candidates are recomputed instead of being kept from pass 1
+// (16·BK of them per thread, which would spill).
+__device__ __forceinline__ float4 lds_fresh(const float* p) {
+  float4 v;
+  asm volatile("ld.volatile.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(static_cast<unsigned>(__cvta_generic_to_shared(p))));
+  return v;
+}
+
+__device__ __forceinline__ float lane(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// Grid (⌈n2/BN⌉, ⌈nb/BM⌉, S). Slice z = blockIdx.z owns k-tiles
+// [z·kts, min((z+1)·kts, ⌈n/BK⌉)) with kts = ⌈⌈n/BK⌉/S⌉, and writes its
+// (w, m) to ow/om + z·nb·n2.
+template <bool VEC>
+__global__ void __launch_bounds__(THREADS, 2)
 multpath_mm_kernel(const float* __restrict__ fw, const float* __restrict__ fm,
-                   const float* __restrict__ a, float* __restrict__ cw,
-                   float* __restrict__ cm, int nb, int n, int n2) {
-  __shared__ __align__(16) float sfw[BK][BM + FPAD];
-  __shared__ __align__(16) float sfm[BK][BM + FPAD];
-  __shared__ __align__(16) float sa[BK][BN];
+                   const float* __restrict__ a, float* __restrict__ ow,
+                   float* __restrict__ om, int nb, int n, int n2) {
+  __shared__ __align__(16) Stage st[STAGES];
 
   const int tid = threadIdx.x;
   const int tx = tid % (BN / TN);  // column group of this thread
   const int ty = tid / (BN / TN);  // row group of this thread
   const int row0 = blockIdx.y * BM;
   const int col0 = blockIdx.x * BN;
+  const int k_tiles = (n + BK - 1) / BK;
+  const int kts = (k_tiles + gridDim.z - 1) / gridDim.z;
+  const int kt0 = blockIdx.z * kts;
+  const int nt = max(0, min(k_tiles, kt0 + kts) - kt0);
 
   float accw[TM][TN];
   float accm[TM][TN];
@@ -81,46 +228,86 @@ multpath_mm_kernel(const float* __restrict__ fw, const float* __restrict__ fm,
     }
   }
 
-  for (int k0 = 0; k0 < n; k0 += BK) {
-    for (int e = tid; e < BM * BK; e += THREADS) {
-      const int r = e / BK;
-      const int c = e % BK;
-      const int gr = row0 + r;
-      const int gk = k0 + c;
-      const bool in = gr < nb && gk < n;
-      const size_t off = static_cast<size_t>(gr) * n + gk;
-      sfw[c][r] = in ? fw[off] : CUDART_INF_F;
-      sfm[c][r] = in ? fm[off] : 0.f;
-    }
-    for (int e = tid; e < BK * BN; e += THREADS) {
-      const int r = e / BN;
-      const int c = e % BN;
-      const int gk = k0 + r;
-      const int gc = col0 + c;
-      sa[r][c] = (gk < n && gc < n2)
-                     ? a[static_cast<size_t>(gk) * n2 + gc]
-                     : CUDART_INF_F;
-    }
-    __syncthreads();
 #pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 w4 = *reinterpret_cast<const float4*>(&sfw[kk][ty * TM]);
-      const float4 m4 = *reinterpret_cast<const float4*>(&sfm[kk][ty * TM]);
-      const float4 a4 = *reinterpret_cast<const float4*>(&sa[kk][tx * TN]);
-      const float fwv[TM] = {w4.x, w4.y, w4.z, w4.w};
-      const float fmv[TM] = {m4.x, m4.y, m4.z, m4.w};
-      const float av[TN] = {a4.x, a4.y, a4.z, a4.w};
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nt) {
+      load_tile<VEC>(st[s], fw, fm, a, nb, n, n2, row0, col0, kt0 + s, tid);
+    }
+    cp_commit();
+  }
+  for (int t = 0; t < nt; ++t) {
+    cp_wait<STAGES - 2>();  // this thread's copies of tile t have landed
+    __syncthreads();        // everyone's have, and tile t-1 is consumed
+    if (t + STAGES - 1 < nt) {
+      load_tile<VEC>(st[(t + STAGES - 1) % STAGES], fw, fm, a, nb, n, n2,
+                     row0, col0, kt0 + t + STAGES - 1, tid);
+    }
+    cp_commit();
+    const Stage& s = st[t % STAGES];
+    // Pass 1: each cell's smallest candidate over the tile's BK steps.
+    float tmin[TM][TN];
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+#pragma unroll
+      for (int j = 0; j < TN; ++j) tmin[i][j] = CUDART_INF_F;
+    }
+#pragma unroll
+    for (int kq = 0; kq < BK; kq += 4) {
+      float4 w4[TM];
 #pragma unroll
       for (int i = 0; i < TM; ++i) {
+        w4[i] = *reinterpret_cast<const float4*>(&s.fw[ty * TM + i][kq]);
+      }
 #pragma unroll
-        for (int j = 0; j < TN; ++j) {
-          mp_relax(accw[i][j], accm[i][j], fwv[i] + av[j], fmv[i]);
+      for (int kk = 0; kk < 4; ++kk) {
+        const float4 a4 =
+            *reinterpret_cast<const float4*>(&s.a[kq + kk][tx * TN]);
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+#pragma unroll
+          for (int j = 0; j < TN; ++j) {
+            tmin[i][j] = fminf(tmin[i][j], lane(w4[i], kk) + lane(a4, j));
+          }
         }
       }
     }
-    __syncthreads();
+    // Merge: a strictly smaller minimum drops the ties summed so far.
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        accm[i][j] = tmin[i][j] < accw[i][j] ? 0.f : accm[i][j];
+        accw[i][j] = fminf(accw[i][j], tmin[i][j]);
+      }
+    }
+    // Pass 2: add m of every candidate of the tile that ties the new w.
+#pragma unroll
+    for (int kq = 0; kq < BK; kq += 4) {
+      float4 w4[TM], m4[TM];
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        w4[i] = lds_fresh(&s.fw[ty * TM + i][kq]);
+        m4[i] = lds_fresh(&s.fm[ty * TM + i][kq]);
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const float4 a4 = lds_fresh(&s.a[kq + kk][tx * TN]);
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+          const float f = lane(w4[i], kk);
+          const float m = lane(m4[i], kk);
+#pragma unroll
+          for (int j = 0; j < TN; ++j) {
+            if (f + lane(a4, j) == accw[i][j]) accm[i][j] += m;
+          }
+        }
+      }
+    }
   }
 
+  const size_t plane = static_cast<size_t>(nb) * n2;
+  float* pw = ow + blockIdx.z * plane;
+  float* pm = om + blockIdx.z * plane;
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
     const int gr = row0 + ty * TM + i;
@@ -130,24 +317,71 @@ multpath_mm_kernel(const float* __restrict__ fw, const float* __restrict__ fm,
       const int gc = col0 + tx * TN + j;
       if (gc < n2) {
         const size_t off = static_cast<size_t>(gr) * n2 + gc;
-        cw[off] = accw[i][j];
-        cm[off] = accm[i][j];
+        pw[off] = accw[i][j];
+        pm[off] = isfinite(accw[i][j]) ? accm[i][j] : 0.f;
       }
     }
   }
 }
 
+// C = ⊕ over z = 0..S-1, in that order, of the slices' (w, m) partials.
+__global__ void multpath_fold_kernel(const float* __restrict__ pw,
+                                     const float* __restrict__ pm,
+                                     float* __restrict__ cw,
+                                     float* __restrict__ cm, size_t plane,
+                                     int splits) {
+  const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= plane) return;
+  float w = pw[i];
+  float m = pm[i];
+  for (int z = 1; z < splits; ++z) {
+    const float w2 = pw[z * plane + i];
+    const float m2 = pm[z * plane + i];
+    const bool tie = w == w2 && isfinite(w);
+    m = w < w2 ? m : (tie ? m + m2 : m2);
+    w = fminf(w, w2);
+  }
+  cw[i] = w;
+  cm[i] = m;
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
 }  // namespace
 
 // fw, fm: (nb, n) row-major float32; a: (n, n2) row-major float32;
-// cw, cm: (nb, n2) outputs. All on `device`. Returns a cudaError_t.
+// cw, cm: (nb, n2) outputs; part: scratch of 2·splits·nb·n2 floats (may
+// be null when splits == 1). All on `device`. Returns a cudaError_t.
 extern "C" int multpath_mm(const float* fw, const float* fm, const float* a,
-                           float* cw, float* cm, int nb, int n, int n2,
-                           int device, cudaStream_t stream) {
+                           float* cw, float* cm, float* part, int nb, int n,
+                           int n2, int splits, int device,
+                           cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((n2 + BN - 1) / BN, (nb + BM - 1) / BM);
-  multpath_mm_kernel<<<grid, THREADS, 0, stream>>>(fw, fm, a, cw, cm, nb, n,
-                                                   n2);
+  if (splits < 1 || (splits > 1 && part == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t plane = static_cast<size_t>(nb) * n2;
+  float* ow = splits == 1 ? cw : part;
+  float* om = splits == 1 ? cm : part + splits * plane;
+  const dim3 grid((n2 + BN - 1) / BN, (nb + BM - 1) / BM, splits);
+  const bool vec = n % 4 == 0 && n2 % 4 == 0 && aligned16(fw) &&
+                   aligned16(fm) && aligned16(a);
+  if (vec) {
+    multpath_mm_kernel<true><<<grid, THREADS, 0, stream>>>(fw, fm, a, ow, om,
+                                                           nb, n, n2);
+  } else {
+    multpath_mm_kernel<false><<<grid, THREADS, 0, stream>>>(fw, fm, a, ow,
+                                                            om, nb, n, n2);
+  }
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  const int fold_threads = 256;
+  const unsigned fold_blocks =
+      static_cast<unsigned>((plane + fold_threads - 1) / fold_threads);
+  multpath_fold_kernel<<<fold_blocks, fold_threads, 0, stream>>>(
+      ow, om, cw, cm, plane, splits);
   return static_cast<int>(cudaGetLastError());
 }

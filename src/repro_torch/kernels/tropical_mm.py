@@ -2,21 +2,78 @@
 
 ``multpath_matmul_cuda`` launches ``csrc/multpath_mm.cu`` (design notes in
 the source) on CUDA tensors and nothing else: it checks device, dtype,
-shape and contiguity, allocates the outputs, launches on the current
-stream, raises if the launch fails, and counts its launches in
-``multpath_matmul_cuda.launches``. Its plain PyTorch version is
-``repro_torch.kernels.ref.multpath_matmul_ref``.
+shape and contiguity, allocates the outputs and the split-K scratch, picks
+the split count, launches on the current stream, raises if the launch
+fails, and counts its launches in ``multpath_matmul_cuda.launches``. Its
+plain PyTorch version is ``repro_torch.kernels.ref.multpath_matmul_ref``.
+``pick_splits`` and ``check_operands`` serve both kernels.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
 
 import torch
 
 from repro_torch.kernels import _build
 
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-MAX_ROWS = 65535 * 32  # grid.y limit times the kernels' 32-row tiles
+_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+             + [ctypes.c_void_p])
+# The tile of both kernels (BM x BN outputs, BK deep per stage, 8 warps).
+BM, BN, BK = 64, 64, 16
+WARPS_PER_BLOCK = 8
+MAX_ROWS = 65535 * BM  # grid.y limit times the row tile
+MIN_SLICE_K_TILES = 4  # each slice sweeps at least 4·BK of k
+
+
+def _even_splits(splits: int, k_tiles: int) -> int:
+    """``splits`` cut down so that no slice of ``k_tiles`` is empty: the
+    kernels give every slice ⌈k_tiles/S⌉ tiles and the last the rest."""
+    if k_tiles == 0:
+        return 1
+    return -(-k_tiles // -(-k_tiles // splits))
+
+
+def pick_splits(nb: int, n: int, n2: int, sms: int) -> int:
+    """Number S of contraction slices (grid.z) for one (nb, n) x (n, n2)
+    product on a card with ``sms`` SMs.
+
+    The fewest slices whose ``S·tiles`` blocks give each SM at least two
+    blocks (16 warps) and spread in whole blocks over the SMs with the
+    busiest SM at most 1/0.9 of the mean (or at least 8 blocks per SM,
+    where the last round matters little). No slice is shorter than
+    ``MIN_SLICE_K_TILES`` k-tiles, and none is empty. (On the H100 the
+    blocks run two per SM; ``tools/torch_split_sweep.py`` times the
+    kernels over S.)
+    """
+    tiles = -(-nb // BM) * -(-n2 // BN)
+    k_tiles = -(-n // BK)
+    s_max = max(1, k_tiles // MIN_SLICE_K_TILES)
+    for s in range(1, s_max + 1):
+        s = _even_splits(s, k_tiles)
+        per_sm = tiles * s / sms
+        if per_sm >= 2 and (per_sm >= 8
+                            or per_sm / math.ceil(per_sm) >= 0.9):
+            return s
+    return _even_splits(s_max, k_tiles)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def scratch_ptr(fw: torch.Tensor, n2: int, fields: int, splits: int):
+    """(buffer, pointer) of the slices' partials: for S > 1 a
+    ``(fields, S, nb, n2)`` float32 buffer, for S = 1 none (None, None).
+    The caller holds the buffer until the launch is queued; after that the
+    caching allocator reuses it only in stream order."""
+    if splits == 1:
+        return None, None
+    part = torch.empty((fields, splits, fw.shape[0], n2),
+                       dtype=torch.float32, device=fw.device)
+    return part, part.data_ptr()
 
 
 def check_operands(f_pair, b: torch.Tensor, what: str) -> None:
@@ -43,27 +100,42 @@ def check_operands(f_pair, b: torch.Tensor, what: str) -> None:
                          "y dimension")
 
 
-def multpath_matmul_cuda(fw: torch.Tensor, fm: torch.Tensor, a: torch.Tensor):
-    """fw/fm: (nb, n); a: (n, n2), float32 on one CUDA device.
-
-    Returns (cw, cm): (nb, n2) with ``cw = min_k fw[:, k] + a[k]`` and
-    ``cm`` the tie-summed multiplicities.
-    """
-    check_operands((fw, fm), a, "multpath_matmul_cuda")
+def multpath_launch(fw: torch.Tensor, fm: torch.Tensor, a: torch.Tensor,
+                    splits: int):
+    """Launch ``csrc/multpath_mm.cu`` with ``splits`` contraction slices
+    on operands that ``check_operands`` passed, nb and n2 > 0. Counts
+    nothing: ``multpath_matmul_cuda`` is the entry point."""
     nb, n = fw.shape
     n2 = a.shape[1]
     cw = torch.empty((nb, n2), dtype=torch.float32, device=fw.device)
     cm = torch.empty((nb, n2), dtype=torch.float32, device=fw.device)
-    if nb == 0 or n2 == 0:
-        return cw, cm
+    part, part_ptr = scratch_ptr(fw, n2, 2, splits)
     fn = _build.function("multpath_mm", _ARGTYPES)
     rc = fn(fw.data_ptr(), fm.data_ptr(), a.data_ptr(), cw.data_ptr(),
-            cm.data_ptr(), nb, n, n2, fw.device.index,
+            cm.data_ptr(), part_ptr, nb, n, n2, splits, fw.device.index,
             torch.cuda.current_stream(fw.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"multpath_mm launch failed: cudaError {rc}")
-    multpath_matmul_cuda.launches += 1
     return cw, cm
+
+
+def multpath_matmul_cuda(fw: torch.Tensor, fm: torch.Tensor, a: torch.Tensor):
+    """fw/fm: (nb, n); a: (n, n2), float32 on one CUDA device.
+
+    Returns (cw, cm): (nb, n2) with ``cw = min_k fw[:, k] + a[k]`` and
+    ``cm`` the tie-summed multiplicities. The contraction is split into
+    ``pick_splits`` slices for this card.
+    """
+    check_operands((fw, fm), a, "multpath_matmul_cuda")
+    nb, n = fw.shape
+    n2 = a.shape[1]
+    if nb == 0 or n2 == 0:
+        return (torch.empty((nb, n2), dtype=torch.float32, device=fw.device),
+                torch.empty((nb, n2), dtype=torch.float32, device=fw.device))
+    out = multpath_launch(fw, fm, a, pick_splits(nb, n, n2,
+                                                 sm_count(fw.device.index)))
+    multpath_matmul_cuda.launches += 1
+    return out
 
 
 multpath_matmul_cuda.launches = 0

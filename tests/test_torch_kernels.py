@@ -25,6 +25,9 @@ from repro_torch.kernels.tropical_mm import multpath_matmul_cuda
 INF = np.inf
 SHAPES = [(8, 16, 16), (8, 128, 128), (16, 200, 136), (128, 128, 256),
           (1, 64, 300), (130, 257, 129)]
+# On the card also shapes that split the contraction: the scale-12 main
+# path's, one with k shorter than a slice, and one with a single row.
+CARD_SHAPES = SHAPES + [(64, 3342, 3342), (64, 17, 1000), (1, 5000, 64)]
 
 
 @pytest.fixture
@@ -179,7 +182,7 @@ def test_build_command_targets_hopper_without_fast_math(name):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("nb,n,n2", SHAPES)
+@pytest.mark.parametrize("nb,n,n2", CARD_SHAPES)
 def test_multpath_kernel_matches_plain_on_card(nb, n, n2, cuda):
     for kind in ("empty", "ties", "random"):
         fw, fm, a = (_t(x, cuda) for x in
@@ -194,7 +197,7 @@ def test_multpath_kernel_matches_plain_on_card(nb, n, n2, cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("nb,n,n2", SHAPES)
+@pytest.mark.parametrize("nb,n,n2", CARD_SHAPES)
 def test_centpath_kernel_matches_plain_on_card(nb, n, n2, cuda):
     for kind in ("empty", "ties", "random"):
         fw, fp, b = (_t(x, cuda) for x in
@@ -207,6 +210,22 @@ def test_centpath_kernel_matches_plain_on_card(nb, n, n2, cuda):
         assert torch.equal(got[0], want[0]), kind
         torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=0.0)
         assert torch.equal(got[2], want[2]), kind
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["multpath", "centpath"])
+@pytest.mark.parametrize("nb,n,n2", [(64, 3342, 3342), (130, 257, 129)])
+def test_kernel_is_bitwise_repeatable_on_card(which, nb, n, n2, cuda):
+    """Split-K folds its slices in order, with no atomics: two launches on
+    the same inputs agree bitwise in every output field."""
+    fw, f2, adj = (_t(x, cuda) for x in _inputs("random", which, nb, n, n2,
+                                                 nb + n))
+    fn = ops.multpath_matmul if which == "multpath" else ops.centpath_matmul
+    first = fn(fw, f2, adj)
+    second = fn(fw, f2, adj)
+    torch.cuda.synchronize()
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
 
 
 @pytest.mark.cuda
