@@ -27,14 +27,37 @@ order; any failed check raises and the script exits non-zero:
    the same batch run with the plain versions on the card.
 4. scale 14 — one 64-source batch of a weighted scale-14 R-MAT graph: its
    seconds, peak device memory, and λ over its first 8 sources against the
-   oracle; then each kernel alone is timed at (64, 12536, 12536).
+   oracle; then each kernel alone and the child count are timed at
+   (64, 12536, 12536).
+5. the sampled path — ``repro_torch.bc.solve`` of an approximate query
+   (ε = 0.05, δ = 0.1, top-10, n_b = 64, dense, one device) through the
+   planner, the executor and the adaptive epochs:
+   a. scale 12: plan, samples, epochs, seconds and launches; λ̂ within ε
+      of phase 3's exact λ on the normalized scale (max|λ̂ − λ| / (n(n−2)))
+      and the top-10 precision;
+   b. scale 14, full size: the same, with TEPS (model) = m·τ/t and peak
+      device memory; the first sample batch's (S1, S2, n_reach) against
+      the same batch with the plain products on the card (S1, S2 rtol
+      1e-5, n_reach bitwise);
+   c. fused batches: requests of 5, 20 and 39 sources packed by a
+      ``BatchAssembler`` into one 64-row batch, each slot bitwise equal to
+      its rows alone at their own buckets (8, 32, 64), and the fused batch
+      bitwise equal over two launches; the same with an n_b = 128
+      executor and 104 rows (buckets 8, 32, 64, 64 alone, 128 fused), at
+      both scales. Also printed: how many elements a bucket-8 and a
+      bucket-128 run of the same rows would differ in if each bucket took
+      its own split count (what the executor's fixed count prevents), and
+      the time of the in-order segmented sum.
 
-The line before the last is one JSON object with each kernel's launches,
+Each main-path run (phases 3, 4, 5a, 5b) starts with the launch counts at
+0 and fails if a kernel did not launch in it. The line before the last is
+one JSON object with each kernel's launches (summed over those runs),
 error, times and bound; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -50,10 +73,16 @@ if not torch.cuda.is_available():
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
+from repro_torch.approx.sampling import AdaptiveSampler  # noqa: E402
+from repro_torch.bc import (BatchAssembler, BCQuery,  # noqa: E402
+                            ExecutionConfig, build_executor, plan, solve)
 from repro_torch.core import monoids  # noqa: E402
 from repro_torch.core.adjacency import DenseAdj, dense_adj_from_graph  # noqa: E402
 from repro_torch.core.brandes_ref import brandes_bc  # noqa: E402
-from repro_torch.core.mfbc import mfbc, mfbc_batch  # noqa: E402
+from repro_torch.core.mfbc import (mfbc, mfbc_batch,  # noqa: E402
+                                   mfbc_batch_moments,
+                                   mfbc_batch_moments_segmented,
+                                   segment_fold)
 from repro_torch.graphs.generators import rmat  # noqa: E402
 from repro_torch.kernels import _build, ref  # noqa: E402
 from repro_torch.kernels.centpath_mm import centpath_matmul_cuda  # noqa: E402
@@ -210,6 +239,113 @@ class PlainDenseAdj(DenseAdj):
         return monoids.centpath_relax_dense(F, self.at, block=self.block)
 
 
+def approx_query(n_b: int = 64) -> BCQuery:
+    """Phase 5's query: ε = 0.05, δ = 0.1, top-10, dense, one device."""
+    return BCQuery(mode="approx", eps=0.05, delta=0.1, topk=10, n_b=n_b,
+                   execution=ExecutionConfig(backend="dense",
+                                             placement="single_host"))
+
+
+def sampled_path(g, label: str, device) -> dict:
+    """Phase 5a/5b: ``solve`` one approximate query on ``device``, as a
+    user calls it (planning and the adjacency upload included in
+    ``wall_s``; ``seconds`` is the epoch loop alone)."""
+    q = approx_query()
+    pl = plan(g, q, device=device)
+    log(f"{label}: {pl.summary()} execution={pl.execution.describe()} "
+        f"sample budget {pl.sample_budget}")
+    epochs = []
+    t0 = time.perf_counter()
+    res = solve(g, q, plan=pl, device=device,
+                progress_cb=lambda e, tau, hw: epochs.append((e, tau, hw)))
+    wall = time.perf_counter() - t0
+    for e, tau, hw in epochs:
+        log(f"{label}: epoch {e}: tau={tau} max halfwidth {hw:.4f}")
+    a = res.approx
+    if res.plan is not pl:
+        raise AssertionError("solve did not pass the plan through")
+    if a.lam.shape != (g.n,) or not (np.all(np.isfinite(a.lam))
+                                     and np.all(np.isfinite(a.halfwidth))):
+        raise AssertionError(f"{label}: λ̂ or its CI is not finite of (n,)")
+    if a.n_samples <= 0 or a.n_samples > pl.sample_budget:
+        raise AssertionError(f"{label}: {a.n_samples} samples outside "
+                             f"(0, {pl.sample_budget}]")
+    return dict(res=a, seconds=res.seconds, wall_s=wall,
+                teps=g.m * a.n_samples / res.seconds)
+
+
+def first_batch_check(ex, g, label: str) -> None:
+    """Phase 5b: the first sample batch of phase 5's stream through the
+    executor (kernels) and through the plain products on the card."""
+    q = approx_query()
+    sampler = AdaptiveSampler(g.n, eps=q.eps, delta=q.delta, n_b=ex.n_b,
+                              seed=q.seed)
+    _, tau0 = sampler.next_epoch()
+    src = sampler.draw(min(tau0, ex.n_b))
+    valid = np.ones(src.size, bool)
+    got = ex.step(src, valid)
+    adj = ex._adj
+    plain = PlainDenseAdj(adj.a, adj.at, adj.block)
+    want = mfbc_batch_moments(plain, torch.from_numpy(src).to(adj.a.device),
+                              torch.from_numpy(valid).to(adj.a.device))
+    want = [x.cpu().numpy() for x in want]
+    for what, x, y in zip(("S1", "S2"), got, want):
+        np.testing.assert_allclose(x, y, rtol=1e-5, atol=0,
+                                   err_msg=f"{label} first batch {what}")
+    np.testing.assert_array_equal(got[2], want[2],
+                                  err_msg=f"{label} first batch n_reach")
+    log(f"{label}: first sample batch (S1, S2, n_reach) matches the plain "
+        f"products on the card (rtol 1e-5; n_reach bitwise); max |dS1| "
+        f"{float(np.abs(got[0] - want[0]).max()):.3g}")
+
+
+def fused_check(ex, g, lens, label: str) -> None:
+    """Phase 5c: one fused batch of requests of ``lens`` sources; each
+    slot bitwise equal to its rows alone, the batch to its repeat."""
+    rng = np.random.default_rng(len(lens))
+    demand = [(j, rng.integers(0, g.n, k).astype(np.int32))
+              for j, k in enumerate(lens)]
+    (fb,) = BatchAssembler(ex).assemble(demand)
+    fused = ex.step_segmented(fb.sources, fb.valid, fb.slot_ids, fb.n_slots)
+    again = ex.step_segmented(fb.sources, fb.valid, fb.slot_ids, fb.n_slots)
+    for x, y in zip(fused, again):
+        np.testing.assert_array_equal(x, y, err_msg=f"{label}: repeat")
+    buckets = []
+    for j, key in enumerate(fb.slots):
+        rows = demand[key][1]
+        alone = ex.step_segmented(rows, np.ones(rows.size, bool),
+                                  np.zeros(rows.size, np.int32), 1)
+        buckets.append(ex.bucket_for(rows.size))
+        for what, x, y in zip(("S1", "S2", "n_reach"), fused, alone):
+            np.testing.assert_array_equal(
+                x[j], y[0], err_msg=f"{label}: slot {j} {what}")
+    log(f"{label}: fused {fb.sources.size} rows at bucket "
+        f"{ex.bucket_for(fb.sources.size)} == each slot alone at buckets "
+        f"{buckets} (bitwise), and == its repeat; split count "
+        f"S={ex._adj.splits} for every bucket")
+
+
+def own_split_drift(ex, g, label: str) -> None:
+    """Phase 5c, informational: the elements in which 5 rows' segmented
+    statistics differ between bucket 8 and bucket ``n_b`` when each bucket
+    takes ``pick_splits``' own count, i.e. without the executor's fix."""
+    adj = dataclasses.replace(ex._adj, splits=None)
+    rng = np.random.default_rng(5)
+    rows = rng.integers(0, g.n, ex.n_b).astype(np.int32)
+    out = []
+    for b in (8, ex.n_b):
+        sid = np.where(np.arange(b) < 5, 0, 1).astype(np.int32)
+        s = mfbc_batch_moments_segmented(
+            adj, torch.from_numpy(rows[:b]).to(DEV),
+            torch.ones(b, dtype=torch.bool, device=DEV), sid, n_slots=2)
+        out.append([x[0].cpu().numpy() for x in s])
+    diff = [int(np.sum(x != y)) for x, y in zip(*out)]
+    own = [pick_splits(b, g.n, g.n, sm_count(0)) for b in (8, ex.n_b)]
+    log(f"{label}: with each bucket's own split count (S={own[0]} at 8, "
+        f"S={own[1]} at {ex.n_b}) the same 5 rows differ in (S1, S2, "
+        f"n_reach) elements {diff} of {g.n}")
+
+
 def graph(scale: int):
     g, _ = rmat(scale, 16, seed=0, weighted=True, max_weight=100
                 ).remove_isolated()
@@ -339,9 +475,12 @@ def main() -> None:
     reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    lam8 = mfbc_batch(adj14, src, valid)[0].cpu().numpy().astype(np.float64)
+    lam8, Tw14, _ = mfbc_batch(adj14, src, valid)
+    lam8 = lam8.cpu().numpy().astype(np.float64)
     dt14 = time.perf_counter() - t0
     launches14 = counts()
+    for name in KERNELS:
+        launches[name] += launches14[name]
     peak = torch.cuda.max_memory_allocated()
     log(f"scale 14: adjacency upload {t_adj:.3f}s, one 64-source batch "
         f"{dt14:.3f}s, launches {launches14}, peak device memory "
@@ -364,6 +503,59 @@ def main() -> None:
               "centpath_mm": (c_w, torch.isfinite(c_w).float(), adj14.at)}
     for name in KERNELS:
         time_kernel(name, args14[name], (64, n14, n14), with_plain=False)
+    csc_ms = time_ms(lambda: adj14.count_sp_children(Tw14), iters=3,
+                     warmup=1)
+    log(f"time count_sp_children (plain, 64 x {n14}, block "
+        f"{adj14.block}): {csc_ms:.4f} ms")
+    del adj14, f_w, c_w, args14, Tw14
+    torch.cuda.empty_cache()
+
+    # 5. the sampled path through solve, at scale 12 and 14
+    runs = {12: (g12, lam), 14: (g14, None)}
+    for scale, (g, lam_exact) in runs.items():
+        label = f"sampled s{scale}"
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        torch.cuda.synchronize()
+        out = sampled_path(g, label, DEV)
+        phase = counts()
+        peak = torch.cuda.max_memory_allocated()
+        a = out["res"]
+        log(f"{label}: n={g.n} m={g.m}: {a.n_samples} samples, "
+            f"{a.n_epochs} epochs, converged={a.converged}, "
+            f"{out['seconds']:.3f}s in the epochs ({out['wall_s']:.3f}s "
+            f"with planning and upload), {out['teps']:,.0f} TEPS (model), "
+            f"launches {phase}, peak device memory {peak / 2**30:.2f} GiB")
+        if not all(v > 0 for v in phase.values()):
+            raise AssertionError(f"a kernel never ran in {label}: {phase}")
+        for name in KERNELS:
+            launches[name] += phase[name]
+        if lam_exact is not None:  # 5a: against phase 3's exact λ
+            err = float(np.abs(a.lam - lam_exact).max()) / (g.n * (g.n - 2))
+            top = set(np.argsort(lam_exact)[::-1][:10].tolist())
+            prec = len(top & set(a.topk(10).tolist())) / 10
+            log(f"{label}: max|λ̂ − λ| / (n(n−2)) = {err:.5f} (eps 0.05), "
+                f"top-10 precision {prec:.1f}")
+            if err > 0.05:
+                raise AssertionError(f"{label}: error {err} exceeds eps")
+    for scale, (g, _) in runs.items():
+        for n_b, lens in ((64, (5, 20, 39)), (128, (5, 20, 39, 40))):
+            label = f"fused s{scale} n_b={n_b}"
+            ex = build_executor(g, plan(g, approx_query(n_b), device=DEV),
+                                device=DEV)
+            if scale == 14 and n_b == 64:
+                first_batch_check(ex, g, f"sampled s{scale}")
+            fused_check(ex, g, lens, label)
+            if n_b == 128:
+                own_split_drift(ex, g, label)
+            del ex
+            torch.cuda.empty_cache()
+    x = torch.rand((64, 3, n14), generator=gen, device=DEV)
+    for n_slots in (1, 3):
+        sid = np.sort(np.arange(64) % n_slots).astype(np.int32)
+        ms = time_ms(lambda: segment_fold(x, sid, n_slots), iters=10)
+        log(f"time segment_fold (64 rows, {n_slots} slot(s), 3 x {n14}): "
+            f"{ms:.4f} ms")
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": k["source"],

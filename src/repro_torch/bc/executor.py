@@ -1,0 +1,304 @@
+"""Executors — one batch-step protocol over the BC backends.
+
+A port of ``repro/bc/executor.py`` for one device. A ``BatchExecutor``
+turns a padded source batch into per-vertex dependency statistics through
+three methods: ``step(sources, valid) -> (S1, S2, n_reach)`` with
+``S1(v) = Σ_s δ_s(v)`` and ``S2(v) = Σ_s δ_s(v)²`` over the batch's valid
+sources (what the sampling epochs call), ``step_sum(sources, valid) -> S1``
+(the exact sweep's Σδ-only reduction), and ``step_segmented(sources, valid,
+slot_ids, n_slots) -> (S1, S2, n_reach)`` shaped ``(n_slots, n)`` — the
+cross-request fusion primitive: one batch packed from several concurrent
+queries, summed per slot. Results are host numpy arrays (float64 moments,
+int32 counts), as in the reference.
+
+Shape bucketing: ``step`` / ``step_sum`` pad to the plan's ``n_b``
+exactly, while ``step_segmented`` pads to the smallest power-of-two bucket
+≥ the batch length (``plan.buckets``, see ``planner.bucket_sizes``). On
+the card every bucket launches the kernels with the split count that
+``n_b`` rows would get (``DenseAdj.for_batches``), and the segmented sum
+folds each slot's rows in row order (``core.mfbc.segment_fold``), so a
+slot's statistics are bitwise the same in any bucket.
+
+What is ported: the ``BackendSpec`` registry with DENSE registered, and
+``SingleHostExecutor`` for betweenness. A COO or CSR plan raises
+``NotImplementedError`` naming slice 3 of ROADMAP.md, another metric
+slice 4, a mesh plan slice 6.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, Protocol, Tuple, Union, \
+    runtime_checkable
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.bc.config import Backend, as_backend
+from repro_torch.bc.planner import _MESH_MSG, BCPlan, bucket_sizes
+from repro_torch.core.adjacency import dense_adj_from_graph
+from repro_torch.core.mfbc import (mfbc_batch, mfbc_batch_moments,
+                                   mfbc_batch_moments_segmented)
+from repro_torch.graphs.formats import Graph
+
+Moments = Tuple[np.ndarray, np.ndarray, np.ndarray]  # (S1, S2, n_reach)
+
+_SLICE = {Backend.COO: 3, Backend.CSR: 3}
+
+
+def _metric_error(what) -> NotImplementedError:
+    return NotImplementedError(
+        f"metric {what!r} is not ported yet: the sweeps of metrics other "
+        "than betweenness are slice 4 of ROADMAP.md")
+
+
+# --- backend registry ------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class BackendSpec:
+    """How one ``Backend`` plugs into the executor layer.
+
+    ``make_adjacency(g, plan, device)`` builds the device-resident
+    adjacency the relax steps dispatch on; ``placements`` lists where the
+    backend can run; ``supports_kernel`` says whether it has a kernel
+    route.
+    """
+
+    backend: Backend
+    make_adjacency: Callable[[Graph, BCPlan, torch.device], Any]
+    placements: Tuple[str, ...] = ("single_host",)
+    supports_kernel: bool = False
+
+
+_BACKEND_REGISTRY: Dict[Backend, BackendSpec] = {}
+
+
+def register_backend(spec: BackendSpec) -> BackendSpec:
+    """Register (or replace) the executor-layer spec for a backend."""
+    _BACKEND_REGISTRY[spec.backend] = spec
+    return spec
+
+
+def backend_spec(backend: Union[Backend, str]) -> BackendSpec:
+    """Resolve a backend (enum or string) to its registered spec."""
+    be = as_backend(backend)
+    try:
+        return _BACKEND_REGISTRY[be]
+    except KeyError:
+        if be in _SLICE:
+            raise NotImplementedError(
+                f"backend {be.value!r} is not ported yet: the COO and CSR "
+                f"backends are slice {_SLICE[be]} of ROADMAP.md; pin "
+                "ExecutionConfig(backend='dense')") from None
+        raise ValueError(f"no executor registered for backend "
+                         f"{be.value!r}") from None
+
+
+def registered_backends() -> Tuple[Backend, ...]:
+    return tuple(_BACKEND_REGISTRY)
+
+
+register_backend(BackendSpec(
+    backend=Backend.DENSE,
+    # Fixed split count for every bucket up to n_b: a row's tie sums must
+    # not depend on the bucket its batch runs at.
+    make_adjacency=lambda g, plan, device: dense_adj_from_graph(
+        g, block=plan.block, device=device).for_batches(plan.n_b),
+    placements=("single_host", "mesh"),
+    supports_kernel=True))
+
+
+@runtime_checkable
+class BatchExecutor(Protocol):
+    """The one surface both solve drivers (exact sweep, epochs) run over."""
+
+    n_b: int  # effective batch size
+    buckets: Tuple[int, ...]  # padded shapes served (ascending, max = n_b)
+    plan: BCPlan
+
+    def step(self, sources: np.ndarray, valid: np.ndarray, *,
+             metric: str = "betweenness", hops: int = 0) -> Moments:
+        """Per-vertex (Σδ, Σδ², n_reach) over the batch's valid sources."""
+        ...
+
+    def step_sum(self, sources: np.ndarray, valid: np.ndarray, *,
+                 metric: str = "betweenness", hops: int = 0) -> np.ndarray:
+        """Σδ only — the exact sweep's reduction."""
+        ...
+
+    def step_segmented(self, sources: np.ndarray, valid: np.ndarray,
+                       slot_ids: np.ndarray, n_slots: int, *,
+                       metrics=None, hops: int = 0) -> Moments:
+        """Per-slot (Σδ, Σδ², n_reach), each ``(n_slots, n)``: row tags
+        ``slot_ids ∈ [0, n_slots)`` say which query each source belongs
+        to. Slot j's statistics are bitwise what a run of its rows alone
+        (in the same order) gives on the same executor. Batches are padded
+        to the smallest serving bucket, not ``n_b``."""
+        ...
+
+    def bucket_for(self, k: int) -> int:
+        """The padded shape a k-source fused batch runs at."""
+        ...
+
+
+def _pad_batch(sources: np.ndarray, valid: np.ndarray, n_b: int):
+    sources = np.asarray(sources, np.int32)
+    valid = np.asarray(valid, bool)
+    if sources.shape[0] > n_b:
+        # Never truncate silently: dropped sources would bias any
+        # estimator fed the full batch's n_valid.
+        raise ValueError(f"batch of {sources.shape[0]} sources exceeds "
+                         f"the executor's n_b={n_b}; split it or build "
+                         f"an executor from a plan with a larger n_b")
+    if sources.shape[0] == n_b:
+        return sources, valid
+    src = np.zeros(n_b, np.int32)
+    val = np.zeros(n_b, bool)
+    k = sources.shape[0]
+    src[:k], val[:k] = sources[:k], valid[:k]
+    return src, val
+
+
+def _pad_segmented(sources, valid, slot_ids, bucket: int, pad_slot: int):
+    """Pad a fused batch to its bucket; padding rows carry ``valid=False``
+    and slot id ``pad_slot`` (the dump segment, dropped from the
+    result)."""
+    sources = np.asarray(sources, np.int32)
+    valid = np.asarray(valid, bool)
+    slot_ids = np.asarray(slot_ids, np.int32)
+    if not (sources.shape == valid.shape == slot_ids.shape):
+        raise ValueError("sources, valid and slot_ids must share one shape")
+    k = sources.shape[0]
+    if k == bucket:
+        return sources, valid, slot_ids
+    src = np.zeros(bucket, np.int32)
+    val = np.zeros(bucket, bool)
+    sid = np.full(bucket, pad_slot, np.int32)
+    src[:k], val[:k], sid[:k] = sources, valid, slot_ids
+    return src, val, sid
+
+
+def _bucket_for(k: int, buckets: Tuple[int, ...], n_b: int) -> int:
+    for b in buckets:
+        if k <= b:
+            return b
+    raise ValueError(f"batch of {k} sources exceeds the executor's "
+                     f"n_b={n_b}; split it (the BatchAssembler caps "
+                     f"fused batches at executor capacity)")
+
+
+def _slot_bucket(n_slots: int) -> int:
+    """Segment-count bucket: next power of two ≥ n_slots. The reference
+    buckets the slot dimension so that its compiled steps stay few; the
+    port keeps the same padded shapes (the extra segments are empty and
+    sliced off)."""
+    b = 1
+    while b < n_slots:
+        b <<= 1
+    return b
+
+
+class _ExecutorBase:
+    """Shared padding/bucketing half of every ``BatchExecutor``.
+
+    Subclasses set ``plan`` / ``n_b`` / ``buckets`` in ``__init__`` and
+    implement the three compute hooks; the base owns the shape contract
+    (exact-``n_b`` padding for ``step``/``step_sum``, bucket and slot
+    padding for ``step_segmented``).
+    """
+
+    plan: BCPlan
+    n_b: int
+    buckets: Tuple[int, ...]
+
+    def bucket_for(self, k: int) -> int:
+        return _bucket_for(k, self.buckets, self.n_b)
+
+    def step(self, sources: np.ndarray, valid: np.ndarray, *,
+             metric: str = "betweenness", hops: int = 0) -> Moments:
+        if metric != "betweenness":
+            raise _metric_error(metric)
+        return self._moments(*_pad_batch(sources, valid, self.n_b))
+
+    def step_sum(self, sources: np.ndarray, valid: np.ndarray, *,
+                 metric: str = "betweenness", hops: int = 0) -> np.ndarray:
+        if metric != "betweenness":
+            raise _metric_error(metric)
+        return self._sum(*_pad_batch(sources, valid, self.n_b))
+
+    def step_segmented(self, sources: np.ndarray, valid: np.ndarray,
+                       slot_ids: np.ndarray, n_slots: int, *,
+                       metrics=None, hops: int = 0) -> Moments:
+        if metrics is not None and any(m != "betweenness" for m in metrics):
+            raise _metric_error(tuple(metrics))
+        bucket = self.bucket_for(np.asarray(sources).shape[0])
+        n_seg = _slot_bucket(n_slots)
+        src, val, sid = _pad_segmented(sources, valid, slot_ids, bucket,
+                                       n_seg)
+        s1, s2, nr = self._segmented(src, val, sid, n_seg)
+        return s1[:n_slots], s2[:n_slots], nr[:n_slots]
+
+    # -- compute hooks (padded inputs, full padded outputs) -------------
+    def _moments(self, src, val) -> Moments:
+        raise NotImplementedError
+
+    def _sum(self, src, val) -> np.ndarray:
+        raise NotImplementedError
+
+    def _segmented(self, src, val, sid, n_seg: int) -> Moments:
+        raise NotImplementedError
+
+
+def _host(s1, s2, nr) -> Moments:
+    return (s1.cpu().numpy().astype(np.float64),
+            s2.cpu().numpy().astype(np.float64), nr.cpu().numpy())
+
+
+class SingleHostExecutor(_ExecutorBase):
+    """One-device moments step on the plan's backend (dense so far).
+
+    ``device``: "cuda" (default; raises without a card) runs the Hopper
+    kernels, "cpu" their plain versions. The adjacency is built once, on
+    that device, from the plan's backend via the registry.
+    """
+
+    def __init__(self, g: Graph, plan: BCPlan, *, device="cuda"):
+        if plan.metric != "betweenness":
+            raise _metric_error(plan.metric)
+        spec = backend_spec(plan.backend)
+        self.device = resolve_device(device)
+        self.plan = plan
+        self.n_b = plan.n_b
+        self.buckets = plan.buckets or bucket_sizes(plan.n_b)
+        self._adj = spec.make_adjacency(g, plan, self.device)
+
+    def _put(self, x: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(x).to(self.device)
+
+    def _moments(self, src, val) -> Moments:
+        return _host(*mfbc_batch_moments(self._adj, self._put(src),
+                                         self._put(val)))
+
+    def _sum(self, src, val) -> np.ndarray:
+        lam_b, _, _ = mfbc_batch(self._adj, self._put(src), self._put(val))
+        return lam_b.cpu().numpy().astype(np.float64)
+
+    def _segmented(self, src, val, sid, n_seg: int) -> Moments:
+        return _host(*mfbc_batch_moments_segmented(
+            self._adj, self._put(src), self._put(val), sid, n_slots=n_seg))
+
+
+def build_executor(g: Graph, plan: BCPlan, *, mesh=None,
+                   device="cuda") -> BatchExecutor:
+    """Instantiate the executor a ``BCPlan`` calls for, on ``device``.
+
+    A mesh plan (or an explicit ``mesh``), an unported backend or another
+    metric raises ``NotImplementedError`` naming its slice of ROADMAP.md.
+    """
+    spec = backend_spec(plan.backend)
+    if plan.placement == "mesh" or mesh is not None:
+        if "mesh" not in spec.placements:
+            raise ValueError(f"backend {spec.backend.value!r} has no mesh "
+                             f"step (placements: {spec.placements})")
+        raise NotImplementedError(_MESH_MSG)
+    return SingleHostExecutor(g, plan, device=device)

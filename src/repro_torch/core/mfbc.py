@@ -4,8 +4,10 @@
 batches. Each batch runs MFBF, the t = s self-mask and MFBr on the device;
 the batch loop and the float64 λ accumulator live on the host.
 
-Only the exact dense path is ported. The moments, segmented, traced and
-metric entry points of ``repro.core.mfbc`` wait for later slices.
+The exact sweep (``mfbc``, ``mfbc_batch``) and the sampled path's moments
+entry points (``mfbc_batch_moments``, ``mfbc_batch_moments_segmented``) are
+ported; the traced and metric entry points of the reference wait for
+slices 3 and 4 of ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -54,6 +56,91 @@ def mfbc_batch(adj, sources: torch.Tensor, valid: torch.Tensor, *,
                                         max_iters_bf=max_iters_bf,
                                         max_iters_br=max_iters_br)
     return contrib.sum(dim=0), Tw, Tm
+
+
+def mfbc_batch_moments(adj, sources: torch.Tensor, valid: torch.Tensor, *,
+                       iterate: str = "while", max_iters_bf: int = 0,
+                       max_iters_br: int = 0
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One Algorithm 3 batch returning per-vertex dependency moments.
+
+    Returns (S1, S2, n_reach) where, over the batch's valid sources s,
+    ``S1(v) = Σ_s δ_s(v)``, ``S2(v) = Σ_s δ_s(v)²`` and
+    ``n_reach(v) = Σ_s [v reachable from s]`` (int32). S1 equals
+    ``mfbc_batch``'s λ_partial; S2 feeds the confidence intervals of the
+    sampled estimator (``repro_torch.approx``).
+    """
+    contrib, mask, _, _ = _batch_contrib(adj, sources, valid, iterate=iterate,
+                                         max_iters_bf=max_iters_bf,
+                                         max_iters_br=max_iters_br)
+    return (contrib.sum(dim=0), (contrib * contrib).sum(dim=0),
+            mask.sum(dim=0, dtype=torch.int32))
+
+
+def segment_fold(x: torch.Tensor, slot_ids: np.ndarray,
+                 n_slots: int) -> torch.Tensor:
+    """Per-slot sums of the rows of ``x``: ``out[j] = Σ x[r]`` over the
+    rows r with ``slot_ids[r] == j``, added one row at a time in row order.
+
+    Rows tagged ``n_slots`` (padding) go to a dump row that is dropped.
+    Step i adds every slot's i-th row at once; a slot appears at most once
+    per step, so each output element takes exactly one add per step: no
+    atomics and no reduction tree whose pairing would follow the batch
+    size. A slot's sums are therefore bitwise those of its rows alone, in
+    any batch and on either device. ``slot_ids`` is on the host, where the
+    fold is scheduled; at most ``len(x)`` steps of a few launches each.
+    """
+    slot_ids = np.asarray(slot_ids, np.int64)
+    if slot_ids.shape != x.shape[:1] or (
+            slot_ids.size and not 0 <= slot_ids.min() <= slot_ids.max()
+            <= n_slots):
+        raise ValueError(f"slot_ids must tag each of the {x.shape[0]} rows "
+                         f"with a slot in [0, {n_slots}]")
+    rank = np.zeros(slot_ids.shape[0], np.int64)
+    seen = {}
+    for r, sid in enumerate(slot_ids.tolist()):
+        rank[r] = seen.get(sid, 0)
+        seen[sid] = rank[r] + 1
+    order = np.argsort(rank, kind="stable")  # rows grouped by step
+    bounds = np.searchsorted(rank[order], np.arange(int(rank.max(initial=-1))
+                                                    + 2))
+    rows = torch.from_numpy(order).to(x.device)
+    segs = torch.from_numpy(slot_ids[order]).to(x.device)
+    out = torch.zeros((n_slots + 1,) + tuple(x.shape[1:]), dtype=x.dtype,
+                      device=x.device)
+    for lo, hi in zip(bounds[:-1].tolist(), bounds[1:].tolist()):
+        seg = segs[lo:hi]
+        out.index_copy_(0, seg, out.index_select(0, seg)
+                        + x.index_select(0, rows[lo:hi]))
+    return out[:n_slots]
+
+
+def mfbc_batch_moments_segmented(adj, sources: torch.Tensor,
+                                 valid: torch.Tensor, slot_ids: np.ndarray,
+                                 *, n_slots: int, iterate: str = "while",
+                                 max_iters_bf: int = 0, max_iters_br: int = 0
+                                 ) -> Tuple[torch.Tensor, torch.Tensor,
+                                            torch.Tensor]:
+    """One Algorithm 3 batch, moments summed per request slot.
+
+    The cross-request fusion primitive: a fused batch packs sources of
+    several concurrent queries, tagged per row with ``slot_ids[s] ∈
+    [0, n_slots)`` (host array; padding rows carry ``n_slots``, a dump
+    segment that is dropped). Returns (S1, S2, n_reach), each
+    ``(n_slots, n)``, where row j holds what this function returns for
+    slot j's rows alone: ``segment_fold`` adds each slot's rows in row
+    order, and on the card the adjacency's fixed split count
+    (``DenseAdj.for_batches``) keeps every row's contribution independent
+    of the batch size.
+    """
+    contrib, mask, _, _ = _batch_contrib(adj, sources, valid, iterate=iterate,
+                                         max_iters_bf=max_iters_bf,
+                                         max_iters_br=max_iters_br)
+    # one fold for the three fields; counts below 2²⁴ are exact in float32
+    folded = segment_fold(torch.stack(
+        [contrib, contrib * contrib, mask.to(contrib.dtype)], dim=1),
+        slot_ids, n_slots)
+    return folded[:, 0], folded[:, 1], folded[:, 2].to(torch.int32)
 
 
 def mfbc(g: Graph, *, n_b: Optional[int] = None, backend: str = "dense",

@@ -13,8 +13,8 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.tropical_mm import (check_operands, pick_splits,
-                                             scratch_ptr, sm_count)
+from repro_torch.kernels.tropical_mm import (check_operands, resolve_splits,
+                                             scratch_ptr)
 
 _ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
              + [ctypes.c_void_p])
@@ -39,12 +39,14 @@ def centpath_launch(fw: torch.Tensor, fp: torch.Tensor, b: torch.Tensor,
     return cw, cp, cc
 
 
-def centpath_matmul_cuda(fw: torch.Tensor, fp: torch.Tensor, b: torch.Tensor):
+def centpath_matmul_cuda(fw: torch.Tensor, fp: torch.Tensor, b: torch.Tensor,
+                         splits=None):
     """fw/fp: (nb, n); b: (n, n2) (= Aᵀ), float32 on one CUDA device.
 
     Returns (cw, cp, cc): (nb, n2) with ``cw = max_k fw[:, k] - b[k]``
     (inactive or no edge -> -inf) and the tie-summed ``cp`` and counts
-    ``cc``. The contraction is split into ``pick_splits`` slices.
+    ``cc``. The contraction is split into ``splits`` slices, by default
+    ``pick_splits``' choice (``tropical_mm.resolve_splits``).
     """
     check_operands((fw, fp), b, "centpath_matmul_cuda")
     nb, n = fw.shape
@@ -52,8 +54,8 @@ def centpath_matmul_cuda(fw: torch.Tensor, fp: torch.Tensor, b: torch.Tensor):
     if nb == 0 or n2 == 0:
         return tuple(torch.empty((nb, n2), dtype=torch.float32,
                                  device=fw.device) for _ in range(3))
-    out = centpath_launch(fw, fp, b, pick_splits(nb, n, n2,
-                                                 sm_count(fw.device.index)))
+    out = centpath_launch(fw, fp, b,
+                          resolve_splits(splits, nb, n, n2, fw.device))
     centpath_matmul_cuda.launches += 1
     return out
 

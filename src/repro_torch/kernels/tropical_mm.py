@@ -6,7 +6,8 @@ shape and contiguity, allocates the outputs and the split-K scratch, picks
 the split count, launches on the current stream, raises if the launch
 fails, and counts its launches in ``multpath_matmul_cuda.launches``. Its
 plain PyTorch version is ``repro_torch.kernels.ref.multpath_matmul_ref``.
-``pick_splits`` and ``check_operands`` serve both kernels.
+``pick_splits``, ``resolve_splits`` and ``check_operands`` serve both
+kernels.
 """
 from __future__ import annotations
 
@@ -119,12 +120,28 @@ def multpath_launch(fw: torch.Tensor, fm: torch.Tensor, a: torch.Tensor,
     return cw, cm
 
 
-def multpath_matmul_cuda(fw: torch.Tensor, fm: torch.Tensor, a: torch.Tensor):
+def resolve_splits(splits, nb: int, n: int, n2: int, device) -> int:
+    """The split count to launch with: ``pick_splits`` for this shape and
+    card when ``splits`` is None, else ``splits`` itself, which must cut
+    the contraction into non-empty slices. A caller that fixes S for
+    every batch size (``repro_torch.bc.executor``) gets rows whose tie
+    sums do not depend on the batch they run in."""
+    if splits is None:
+        return pick_splits(nb, n, n2, sm_count(device.index))
+    k_tiles = -(-n // BK)
+    if splits < 1 or _even_splits(splits, k_tiles) != splits:
+        raise ValueError(f"splits={splits} leaves an empty slice of the "
+                         f"{k_tiles} k-tiles of n={n}")
+    return int(splits)
+
+
+def multpath_matmul_cuda(fw: torch.Tensor, fm: torch.Tensor, a: torch.Tensor,
+                         splits=None):
     """fw/fm: (nb, n); a: (n, n2), float32 on one CUDA device.
 
     Returns (cw, cm): (nb, n2) with ``cw = min_k fw[:, k] + a[k]`` and
     ``cm`` the tie-summed multiplicities. The contraction is split into
-    ``pick_splits`` slices for this card.
+    ``splits`` slices, by default ``pick_splits``' choice for this card.
     """
     check_operands((fw, fm), a, "multpath_matmul_cuda")
     nb, n = fw.shape
@@ -132,8 +149,8 @@ def multpath_matmul_cuda(fw: torch.Tensor, fm: torch.Tensor, a: torch.Tensor):
     if nb == 0 or n2 == 0:
         return (torch.empty((nb, n2), dtype=torch.float32, device=fw.device),
                 torch.empty((nb, n2), dtype=torch.float32, device=fw.device))
-    out = multpath_launch(fw, fm, a, pick_splits(nb, n, n2,
-                                                 sm_count(fw.device.index)))
+    out = multpath_launch(fw, fm, a,
+                          resolve_splits(splits, nb, n, n2, fw.device))
     multpath_matmul_cuda.launches += 1
     return out
 

@@ -1,15 +1,31 @@
-"""Exact betweenness-centrality launcher of the PyTorch port.
+"""Betweenness-centrality launcher of the PyTorch port.
 
-  PYTHONPATH=src python -m repro_torch.launch.bc_run --graph rmat --scale 8 \
-      --degree 8 --nb 64 [--weighted] [--iterate while|fori] \
+  PYTHONPATH=src python -m repro_torch.launch.bc_run --graph rmat \
+      --scale 8 --degree 8 [--weighted] [--nb 64] [--backend dense|auto] \
       [--device cuda|cpu] [--verify]
 
-Runs the paper's Algorithm 3 on the dense backend through
-``repro_torch.core.mfbc.mfbc``: on the card by default, through the Hopper
-kernels; ``--device cpu`` runs their plain PyTorch versions. ``--verify``
-checks λ against the numpy Brandes oracle. The planner, ``--approx``,
-``--mesh``, ``--metric`` and ``--ckpt-dir`` of ``repro.launch.bc_run`` are
-not ported yet.
+Every mode is one call into ``repro_torch.bc``: build a ``BCQuery``, let
+``BCPlanner`` resolve the batch size (printed as the ``BCPlan`` line; pin
+it with ``--nb``, 0 = the planner's pick) and run ``solve`` on one device:
+the card by default, through the Hopper kernels; ``--device cpu`` runs
+their plain PyTorch versions. ``--backend`` defaults to ``dense``, the
+only backend ported so far; ``auto`` lets the planner choose, and a
+sparse choice exits naming slice 3 of ROADMAP.md.
+
+Approximate mode (adaptive source sampling, ``repro_torch.approx``):
+
+  PYTHONPATH=src python -m repro_torch.launch.bc_run --graph rmat \
+      --scale 10 --approx 0.05,0.1 [--topk 10] \
+      [--strategy adaptive|uniform] [--rule bernstein|normal] \
+      [--max-samples N]
+
+``--approx eps,delta`` replaces the exact all-sources sweep with the
+epoch-doubling sampler and prints the top-k vertices with their
+confidence intervals. ``--verify`` checks λ (exact) or the ε bound and
+top-k precision (approx) against the numpy Brandes oracle.
+
+``--mesh``, ``--metric`` and ``--ckpt-dir`` of ``repro.launch.bc_run``
+exit naming the slice that brings them.
 """
 from __future__ import annotations
 
@@ -19,9 +35,49 @@ import time
 import numpy as np
 
 from repro_torch import resolve_device
+from repro_torch.bc import BCQuery, ExecutionConfig
+from repro_torch.bc import plan as bc_plan
+from repro_torch.bc import solve as bc_solve
 from repro_torch.core.brandes_ref import brandes_bc
-from repro_torch.core.mfbc import mfbc
 from repro_torch.graphs.generators import from_spec
+
+_UNPORTED = {"mesh": "the distributed step is slice 6",
+             "metric": "metrics other than betweenness are slice 4",
+             "ckpt_dir": "per-batch checkpoints are slice 7"}
+
+
+def _parse_approx(spec: str):
+    try:
+        eps_s, delta_s = spec.split(",")
+        eps, delta = float(eps_s), float(delta_s)
+    except ValueError:
+        raise SystemExit(
+            f"--approx expects 'eps,delta' (e.g. 0.05,0.1), got {spec!r}")
+    if not (0 < eps < 1 and 0 < delta < 1):
+        raise SystemExit(f"--approx eps and delta must be in (0, 1), got "
+                         f"eps={eps} delta={delta}")
+    return eps, delta
+
+
+def _report_approx(g, res, args, eps, delta):
+    ids = res.topk(args.topk)
+    print(f"[bc] top-{args.topk} central vertices (λ̂ ± CI):")
+    for v in ids:
+        print(f"[bc]   v={int(v):6d}  {res.lam[v]:12.2f} ± "
+              f"{res.halfwidth[v]:.2f}")
+    if not args.verify:
+        return
+    ref = brandes_bc(g)
+    err = float(np.abs(res.lam - ref).max()) / (g.n * max(g.n - 2, 1))
+    top_ref = set(np.argsort(ref)[::-1][:args.topk].tolist())
+    prec = len(top_ref & set(ids.tolist())) / args.topk
+    print(f"[bc] vs Brandes oracle: max normalized error {err:.4f} "
+          f"(eps={eps}), top-{args.topk} precision {prec:.2f}")
+    if err > eps:
+        # Legitimate with probability ≤ delta (and the "normal" rule's
+        # CIs are a CLT profile, not a concentration bound): warn.
+        print(f"[bc] WARNING: error {err:.4f} exceeds eps={eps} "
+              f"(expected with probability <= {delta})")
 
 
 def main(argv=None):
@@ -31,13 +87,33 @@ def main(argv=None):
     ap.add_argument("--scale", type=int, default=8)
     ap.add_argument("--degree", type=int, default=8)
     ap.add_argument("--weighted", action="store_true")
-    ap.add_argument("--nb", type=int, default=64, help="batch size")
+    ap.add_argument("--nb", type=int, default=64,
+                    help="batch size (0 = the planner's cost-model pick)")
+    ap.add_argument("--backend", default="dense", choices=["dense", "auto"],
+                    help="relax backend (auto = the planner's regime "
+                         "choice; only dense is ported)")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--iterate", default="while", choices=["while", "fori"])
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--verify", action="store_true",
                     help="check against the Brandes oracle (slow)")
+    ap.add_argument("--approx", default="",
+                    help="eps,delta — run adaptive-sampling approximate BC")
+    ap.add_argument("--topk", type=int, default=10,
+                    help="top-k query size for --approx")
+    ap.add_argument("--strategy", default="adaptive",
+                    choices=["adaptive", "uniform"])
+    ap.add_argument("--rule", default="bernstein",
+                    choices=["bernstein", "normal"])
+    ap.add_argument("--max-samples", type=int, default=0)
+    ap.add_argument("--mesh", default="")
+    ap.add_argument("--metric", default="betweenness")
+    ap.add_argument("--ckpt-dir", default="")
     args = ap.parse_args(argv)
+    for opt, why in _UNPORTED.items():
+        value = getattr(args, opt)
+        if value and value != "betweenness":
+            raise SystemExit(f"[bc] --{opt.replace('_', '-')} is not ported "
+                             f"yet: {why} of ROADMAP.md")
     try:
         resolve_device(args.device)
     except RuntimeError as e:
@@ -47,18 +123,45 @@ def main(argv=None):
                   weighted=args.weighted, seed=args.seed)
     g, _ = g.remove_isolated()
     print(f"[bc] graph {g.name}: n={g.n} m={g.m} device={args.device}")
-    n_b = min(args.nb, g.n)
-    total_batches = -(-g.n // n_b)
+    execution = ExecutionConfig(
+        backend=None if args.backend == "auto" else args.backend)
+    kw = dict(mode="exact")
+    if args.approx:
+        eps, delta = _parse_approx(args.approx)
+        kw = dict(mode="approx", eps=eps, delta=delta,
+                  strategy=args.strategy, rule=args.rule, topk=args.topk,
+                  max_samples=args.max_samples or None)
+        print(f"[bc] approx mode: eps={eps} delta={delta} "
+              f"strategy={args.strategy} rule={args.rule}")
+    query = BCQuery(n_b=args.nb or None, execution=execution, seed=args.seed,
+                    **kw)
+    pl = bc_plan(g, query, n_devices=1, device=args.device)
+    print(f"[bc] {pl.summary()} execution={pl.execution.describe()}")
 
-    def progress(b, n_batches, lam):
-        print(f"[bc] batch {b + 1}/{total_batches}")
+    if args.approx:
+        def progress(epoch, tau, max_hw):
+            print(f"[bc] epoch {epoch}: tau={tau} max_halfwidth={max_hw:.4f}")
+    else:
+        def progress(b, n_batches, lam):
+            print(f"[bc] batch {b + 1}/{n_batches}")
 
     t0 = time.time()
-    lam = mfbc(g, n_b=n_b, iterate=args.iterate, device=args.device,
-               progress_cb=progress)
+    try:
+        out = bc_solve(g, query, plan=pl, progress_cb=progress,
+                       device=args.device)
+    except NotImplementedError as e:  # e.g. --backend auto chose csr
+        raise SystemExit(f"[bc] cannot run this plan: {e}")
     dt = time.time() - t0
     # TEPS as the paper counts it: every edge is traversed once per source
-    teps = g.m * g.n / dt
+    teps = g.m * out.n_samples / dt
+    if args.approx:
+        res = out.approx
+        print(f"[bc] approx done in {dt:.2f}s — {res.n_samples} samples "
+              f"({res.n_epochs} epochs, converged={res.converged}) — "
+              f"{teps:,.0f} TEPS (model)")
+        _report_approx(g, res, args, eps, delta)
+        return res
+    lam = out.lam
     print(f"[bc] done in {dt:.2f}s — {teps:,.0f} TEPS (model)")
     top = np.argsort(lam)[::-1][:5]
     print("[bc] top-5 central vertices:", list(zip(top.tolist(),

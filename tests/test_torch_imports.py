@@ -14,6 +14,8 @@ from pathlib import Path
 import pytest
 import torch
 
+from repro_torch.bc import (BCQuery, ExecutionConfig, build_executor, plan,
+                            solve)
 from repro_torch.core.adjacency import dense_adj_from_graph
 from repro_torch.core.mfbc import mfbc
 from repro_torch.graphs.generators import path_graph
@@ -29,8 +31,23 @@ for mod in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not bad, bad
-print("OK", len([m for m in sys.modules if m.startswith("repro_torch")]))
+print("OK", " ".join(sorted(m for m in sys.modules
+                            if m.startswith("repro_torch"))))
 """
+# The modules of each slice, so that a module dropped from the walk (a
+# missing __init__) fails here instead of going unchecked.
+_MODULES = {
+    "repro_torch.core.mfbc", "repro_torch.core.adjacency",
+    "repro_torch.kernels.ops", "repro_torch.launch.bc_run",
+    # slice 2: the sampled path and the solver facade
+    "repro_torch.approx", "repro_torch.approx.sampling",
+    "repro_torch.approx.driver", "repro_torch.spgemm",
+    "repro_torch.spgemm.cost_model", "repro_torch.spgemm.autotune",
+    "repro_torch.core.metrics", "repro_torch.bc", "repro_torch.bc.config",
+    "repro_torch.bc.query", "repro_torch.bc.planner",
+    "repro_torch.bc.executor", "repro_torch.bc.solve",
+    "repro_torch.bc.fusion", "repro_torch.bc.refine",
+}
 
 _BANNED = re.compile(r"^\s*(?:import|from)\s+(?:jax|repro)\b", re.MULTILINE)
 
@@ -41,6 +58,8 @@ def test_port_loads_neither_jax_nor_repro():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("OK")
+    loaded = set(out.stdout.split()[1:])
+    assert _MODULES <= loaded, sorted(_MODULES - loaded)
 
 
 def test_port_sources_name_neither_jax_nor_repro():
@@ -64,3 +83,8 @@ def test_entry_points_default_to_the_card(monkeypatch):
         dense_adj_from_graph(g)
     with pytest.raises(SystemExit, match="--device cpu"):
         bc_run.main(["--scale", "3"])
+    q = BCQuery(n_b=4, execution=ExecutionConfig(backend="dense"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        solve(g, q)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_executor(g, plan(g, q, n_devices=1))
