@@ -49,10 +49,38 @@ order; any failed check raises and the script exits non-zero:
       its own split count (what the executor's fixed count prevents), and
       the time of the in-order segmented sum.
 
-Each main-path run (phases 3, 4, 5a, 5b) starts with the launch counts at
-0 and fails if a kernel did not launch in it. The line before the last is
-one JSON object with each kernel's launches (summed over those runs),
-error, times and bound; the last line is
+6. the COO and CSR backends, with the third kernel, the segment sum:
+   a. the segment-sum kernel against its plain version run on the CPU
+      (``index_add_``, which adds in index order), bitwise, and over two
+      launches: empty, single-arc and short runs, a run as long as scale
+      18's largest degree (25,231), padding arcs, a dump tail, a row with
+      no tie;
+   b. scale 14, one 64-source batch through the dense, COO and CSR
+      executors: ``w``, ``m``, the child counts ``c`` and ``n_reach``
+      bitwise equal across the three (max ``m`` printed, below 2^24),
+      S1/S2 within rtol 1e-5; CSR against CSR with caps ((1, 1),),
+      bitwise in every field; fused == alone on CSR at n_b 64 and 128 at
+      scales 12 and 14, bitwise;
+   c. scale-12 exact BC through an unpinned ``solve`` (the planner picks
+      CSR) against phase 3's dense λ (rtol 1e-5, atol 1e-8), with its
+      seconds, TEPS (model) and occupancy;
+   d. scale 18 (n = 173,847, 7,610,770 arcs), an unpinned ``solve`` of
+      ε = 0.05, δ = 0.1, top-10 on the planner's own backend and n_b: the
+      plan, samples, epochs, seconds, TEPS (model), peak device memory and
+      occupancy. Its first sample batch: ``Tw`` bitwise equal to scipy's
+      Dijkstra, the ladder bitwise equal to the forced fallback, λ of one
+      source against ``brandes_bc``; the segment sum timed (with its
+      plain version, one ``index_add_`` and its bound) at the
+      full-edge-list shape. ``max_samples`` is capped if the budget's
+      batches would take more than ``EPOCH_LIMIT_S``;
+   e. ``launch.calibrate`` at scale 14 into a temporary file under
+      ``build/``, its rates, and the plan it gives phase 6d's query.
+
+Each main-path run (phases 3, 4, 5a, 5b on the dense kernels, 6c and 6d
+on the segment sum) starts with the launch counts at 0 and fails if a
+kernel of its path did not launch in it. The line before the last is one
+JSON object with each kernel's launches (summed over those runs), error,
+times and bound; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 from __future__ import annotations
@@ -62,6 +90,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -70,25 +99,31 @@ import torch
 if not torch.cuda.is_available():
     sys.exit("chip_smoke: no CUDA device is available")
 
-sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                                "src"))
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
 
 from repro_torch.approx.sampling import AdaptiveSampler  # noqa: E402
-from repro_torch.bc import (BatchAssembler, BCQuery,  # noqa: E402
-                            ExecutionConfig, build_executor, plan, solve)
+from repro_torch.bc import (BatchAssembler, BCPlanner,  # noqa: E402
+                            BCQuery, ExecutionConfig, build_executor, plan,
+                            solve)
 from repro_torch.core import monoids  # noqa: E402
-from repro_torch.core.adjacency import DenseAdj, dense_adj_from_graph  # noqa: E402
+from repro_torch.core.adjacency import (DenseAdj,  # noqa: E402
+                                        dense_adj_from_graph)
 from repro_torch.core.brandes_ref import brandes_bc  # noqa: E402
 from repro_torch.core.mfbc import (mfbc, mfbc_batch,  # noqa: E402
                                    mfbc_batch_moments,
                                    mfbc_batch_moments_segmented,
                                    segment_fold)
+from repro_torch.core.mfbf import mfbf  # noqa: E402
 from repro_torch.graphs.generators import rmat  # noqa: E402
 from repro_torch.kernels import _build, ref  # noqa: E402
 from repro_torch.kernels.centpath_mm import centpath_matmul_cuda  # noqa: E402
+from repro_torch.kernels.segment_sum import segment_sum_cuda  # noqa: E402
 from repro_torch.kernels.tropical_mm import (BM, BN,  # noqa: E402
                                              multpath_matmul_cuda,
                                              pick_splits, sm_count)
+from repro_torch.launch import calibrate  # noqa: E402
+from repro_torch.spgemm.cost_model import load_calibration  # noqa: E402
 
 INF = float("inf")
 DEV = torch.device("cuda")
@@ -96,6 +131,7 @@ DEV = torch.device("cuda")
 # schedulers x 32 lanes x 1.98 GHz boost) and the HBM3 data-sheet rate.
 PEAK_INSTR_PER_S = 33.5e12
 PEAK_BYTES_PER_S = 3.35e12
+EPOCH_LIMIT_S = 180  # phase 6d caps max_samples past about 3 minutes
 SWEEP = [(8, 16, 16), (8, 128, 128), (16, 200, 136), (128, 128, 256),
          (1, 64, 300), (130, 257, 129), (64, 4096, 4096),
          # split-K: k shorter than one slice, and a single row
@@ -113,6 +149,17 @@ KERNELS = {
         replaces="src/repro/kernels/centpath_mm.py:60", n_out=3,
         fields=(("w", None), ("p", 1e-5), ("c", None))),
 }
+# The segment sum of the COO and CSR relaxations (phase 6). No Pallas
+# kernel stands behind it: it replaces jax.ops.segment_sum, first called
+# at the "replaces" line.
+SEGMENT_SUM = dict(
+    wrapper=segment_sum_cuda,
+    source="src/repro_torch/kernels/csrc/segment_sum.cu",
+    replaces="src/repro/core/monoids.py:231")
+WRAPPERS = {**{name: k["wrapper"] for name, k in KERNELS.items()},
+            "segment_sum": segment_sum_cuda}
+DENSE_PATH = tuple(KERNELS)  # the kernels each dense run must launch
+SPARSE_PATH = ("segment_sum",)  # and each COO / CSR run
 
 
 def log(msg: str) -> None:
@@ -120,12 +167,20 @@ def log(msg: str) -> None:
 
 
 def reset_counts() -> None:
-    for k in KERNELS.values():
-        k["wrapper"].launches = 0
+    for wrapper in WRAPPERS.values():
+        wrapper.launches = 0
 
 
-def counts() -> dict:
-    return {name: k["wrapper"].launches for name, k in KERNELS.items()}
+def tally(total: dict, names, label: str) -> dict:
+    """The launches of the run that just ended (counts reset before it):
+    fail unless every kernel of ``names`` launched, add them to
+    ``total``."""
+    got = {name: WRAPPERS[name].launches for name in names}
+    if not all(got.values()):
+        raise AssertionError(f"a kernel of {label} never ran: {got}")
+    for name, v in got.items():
+        total[name] += v
+    return got
 
 
 def inputs(kind: str, which: str, nb: int, n: int, n2: int,
@@ -319,10 +374,12 @@ def fused_check(ex, g, lens, label: str) -> None:
         for what, x, y in zip(("S1", "S2", "n_reach"), fused, alone):
             np.testing.assert_array_equal(
                 x[j], y[0], err_msg=f"{label}: slot {j} {what}")
+    splits = getattr(ex._adj, "splits", None)
     log(f"{label}: fused {fb.sources.size} rows at bucket "
         f"{ex.bucket_for(fb.sources.size)} == each slot alone at buckets "
-        f"{buckets} (bitwise), and == its repeat; split count "
-        f"S={ex._adj.splits} for every bucket")
+        f"{buckets} (bitwise), and == its repeat"
+        + ("" if splits is None else
+           f"; split count S={splits} for every bucket"))
 
 
 def own_split_drift(ex, g, label: str) -> None:
@@ -344,6 +401,345 @@ def own_split_drift(ex, g, label: str) -> None:
     log(f"{label}: with each bucket's own split count (S={own[0]} at 8, "
         f"S={own[1]} at {ex.n_b}) the same 5 rows differ in (S1, S2, "
         f"n_reach) elements {diff} of {g.n}")
+
+
+# -- phase 6: the COO and CSR backends --------------------------------------
+
+def segment_inputs(nb: int, runs, seed: int):
+    """Phase 6a: segment-sum inputs on the card with the given run lengths
+    (some 0): integer candidates with ties, non-integer values, padding
+    arcs (cand inf), a dump tail past the last segment, best the segment
+    minimum, and a last row whose best is not finite (no tie)."""
+    rng = np.random.default_rng(seed)
+    n = len(runs)
+    seg = np.concatenate([np.repeat(np.arange(n), runs), np.full(7, n)])
+    cand = rng.integers(0, 4, (nb, seg.size)).astype(np.float32)
+    cand[:, ::11] = INF
+    val = (rng.random((nb, seg.size)) * 3 + 0.1).astype(np.float32)
+    best = np.full((nb, n), INF, np.float32)
+    np.minimum.at(best.T, seg[seg < n], cand.T[seg < n])
+    best[-1] = INF
+    seg_t = torch.from_numpy(seg).to(DEV)
+    runs_t = monoids.arc_runs(seg_t, seg_t, seg_t.float(), n)
+    return ([torch.from_numpy(x).to(DEV) for x in (cand, best, val)],
+            runs_t.seg, runs_t.offsets)
+
+
+def segment_check(args, seg, offsets, count: bool, where: str) -> float:
+    """The kernel twice (bitwise equal) against its plain version on the
+    CPU (``index_add_`` in index order), bitwise; returns max |d| (0)."""
+    first = segment_sum_cuda(*args, offsets, count=count)
+    second = segment_sum_cuda(*args, offsets, count=count)
+    torch.cuda.synchronize()
+    want = ref.segment_sum_ref(*(x.cpu() for x in args), seg.cpu(),
+                               count=count)
+    err = 0.0
+    for x, y, z in zip(first, second, want):
+        if z is None:
+            continue
+        if not torch.equal(x, y):
+            raise AssertionError(f"segment_sum {where}: two launches differ")
+        x = x.cpu()
+        if not torch.equal(x, z):
+            raise AssertionError(f"segment_sum {where}: not bitwise equal to "
+                                 f"the plain version (max |d| "
+                                 f"{max_abs_err(x, z)})")
+        err = max(err, max_abs_err(x, z))
+    return err
+
+
+def segment_bound(best, offsets, outputs: int):
+    """(bound_ms, bound_by) of one segment sum on this data: the bytes of
+    the runs whose best is finite (cand and val, 4 bytes each), best, the
+    offsets and the outputs, against 2 instructions (compare, add) per
+    candidate read."""
+    nb, n = best.shape
+    lens = (offsets[1:] - offsets[:-1]).to(torch.float64)
+    elems = float((torch.isfinite(best).to(torch.float64) * lens).sum())
+    nbytes = 8.0 * elems + 4.0 * nb * n * (1 + outputs) + 8.0 * (n + 1)
+    t_ops, t_bytes = 2.0 * elems / PEAK_INSTR_PER_S, nbytes / PEAK_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def phase6a() -> float:
+    """The segment-sum kernel against its plain version on small inputs:
+    empty, single-arc and short runs, a run as long as scale 18's largest
+    degree, padding arcs, a dump tail, a row with no tie."""
+    rng = np.random.default_rng(6)
+    cases = {"mixed runs": (5, rng.choice([0, 1, 2, 5, 40], size=3000)),
+             "a 25231-arc run": (3, np.concatenate(
+                 [[25231], rng.integers(0, 3, 50)]))}
+    err = 0.0
+    for label, (nb, runs) in cases.items():
+        args, seg, offsets = segment_inputs(nb, runs, 1)
+        for count in (False, True):
+            err = max(err, segment_check(args, seg, offsets, count, label))
+        log(f"6a: segment_sum {label} (nb={nb}, {int(np.sum(runs))} arcs): "
+            "bitwise equal to the plain version, with and without the "
+            "count, and over two launches")
+    return err
+
+
+def batch_fields(ex, src: np.ndarray) -> dict:
+    """Phase 6b: one batch through an executor, and its sweeps' fields."""
+    adj = ex._adj
+    s = torch.from_numpy(src).to(DEV)
+    Tw, Tm = mfbf(adj, s)
+    Tw_m = Tw.clone()
+    Tw_m[torch.arange(src.size, device=DEV), s.long()] = INF
+    c = adj.count_sp_children(Tw_m)
+    s1, s2, nr = ex.step(src, np.ones(src.size, bool))
+    return dict(w=Tw.cpu(), m=Tm.cpu(), c=c.cpu(), S1=s1, S2=s2,
+                n_reach=nr)
+
+
+def csr_executor(g, n_b: int):
+    return build_executor(g, plan(g, BCQuery(
+        mode="approx", n_b=n_b, execution=ExecutionConfig(
+            backend="csr", placement="single_host")), device=DEV),
+        device=DEV)
+
+
+def phase6b(g12, g) -> None:
+    """Scale 14, one 64-source batch through the dense, COO and CSR
+    executors; CSR against CSR with caps ((1, 1),); fused == alone on CSR
+    at n_b 64 and 128, at scales 12 and 14 (phase 5c's batches)."""
+    for scale, gs in ((12, g12), (14, g)):
+        for n_b, lens in ((64, (5, 20, 39)), (128, (5, 20, 39, 40))):
+            fused_check(csr_executor(gs, n_b), gs, lens,
+                        f"6b: CSR fused s{scale} n_b={n_b}")
+    src = np.random.default_rng(14).integers(0, g.n, 64).astype(np.int32)
+    out = {}
+    for be in ("dense", "coo", "csr"):
+        ex = build_executor(g, plan(g, BCQuery(
+            mode="approx", n_b=64, execution=ExecutionConfig(
+                backend=be, placement="single_host")), device=DEV),
+            device=DEV)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[be] = batch_fields(ex, src)
+        log(f"6b: {be} batch fields in {time.perf_counter() - t0:.3f}s")
+        if be == "csr":
+            tiny = dataclasses.replace(ex._adj, caps=((1, 1),))
+            ex._adj, adj = tiny, ex._adj
+            forced = batch_fields(ex, src)
+            ex._adj = adj
+            for k, v in out["csr"].items():
+                np.testing.assert_array_equal(
+                    np.asarray(forced[k]), np.asarray(v),
+                    err_msg=f"6b: CSR caps ((1, 1),) {k}")
+            log("6b: CSR with caps ((1, 1),) (every relax on the fallback) "
+                "== CSR with its ladder, bitwise in w, m, c, S1, S2, "
+                "n_reach")
+        del ex
+        torch.cuda.empty_cache()
+    for be in ("coo", "csr"):
+        for k in ("w", "m", "c", "n_reach"):
+            np.testing.assert_array_equal(
+                np.asarray(out[be][k]), np.asarray(out["dense"][k]),
+                err_msg=f"6b: {be} {k} against dense")
+        for k in ("S1", "S2"):
+            np.testing.assert_allclose(out[be][k], out["dense"][k],
+                                       rtol=1e-5, atol=1e-8,
+                                       err_msg=f"6b: {be} {k}")
+    m = out["dense"]["m"]
+    max_m = float(m[torch.isfinite(out["dense"]["w"])].max())
+    if max_m >= 2 ** 24:
+        raise AssertionError(f"6b: max m {max_m} is not exact in float32")
+    log(f"6b: dense, COO and CSR agree: w, m, c, n_reach bitwise, S1/S2 "
+        f"within rtol 1e-5; max m {max_m:.0f} (< 2^24)")
+
+
+def first_sparse_batch(ex, g, q) -> float:
+    """Phase 6d: the first sample batch of the query's stream. ``Tw``
+    bitwise against scipy's Dijkstra; the ladder bitwise against the
+    forced fallback; λ of its first source against ``brandes_bc``.
+    Returns (seconds of one ``step`` of the batch, its Tw, its Tm)."""
+    from scipy.sparse import csr_matrix
+    from scipy.sparse.csgraph import dijkstra
+
+    sampler = AdaptiveSampler(g.n, eps=q.eps, delta=q.delta, n_b=ex.n_b,
+                              seed=q.seed)
+    _, tau0 = sampler.next_epoch()
+    src = sampler.draw(min(tau0, ex.n_b))
+    s = torch.from_numpy(src).to(DEV)
+    Tw, Tm = mfbf(ex._adj, s)
+    t0 = time.perf_counter()
+    dist = dijkstra(csr_matrix((g.w.astype(np.float64), (g.src, g.dst)),
+                               shape=(g.n, g.n)), indices=src)
+    t_dij = time.perf_counter() - t0
+    off = np.ones(dist.shape, bool)
+    off[np.arange(src.size), src] = False  # MFBF's T(s, s) is a cycle
+    got = Tw.cpu().numpy()
+    if not np.array_equal(got[off], dist.astype(np.float32)[off]):
+        raise AssertionError("6d: Tw differs from scipy's Dijkstra")
+    log(f"6d: first batch ({src.size} sources) Tw == scipy dijkstra "
+        f"distances, bitwise ({t_dij:.1f}s on the host)")
+    valid = torch.ones(src.size, dtype=torch.bool, device=DEV)
+    ladder = mfbc_batch_moments(ex._adj, s, valid)
+    fallback = mfbc_batch_moments(
+        dataclasses.replace(ex._adj, caps=((1, 1),)), s, valid)
+    for what, x, y in zip(("S1", "S2", "n_reach"), ladder, fallback):
+        if not torch.equal(x, y):
+            raise AssertionError(f"6d: ladder and fallback differ in {what}")
+    log("6d: first batch through the ladder == through the forced fallback "
+        "(caps ((1, 1),)), bitwise in S1, S2, n_reach")
+    one = np.array([src[0]], np.int32)
+    lam = ex.step_sum(one, np.ones(1, bool))
+    t0 = time.perf_counter()
+    want = brandes_bc(g, sources=one)
+    log(f"oracle: 1 source in {time.perf_counter() - t0:.1f}s (CPU)")
+    np.testing.assert_allclose(lam, want, rtol=1e-5, atol=1e-8)
+    log(f"6d: λ of source {int(one[0])} matches brandes_bc (rtol 1e-5, "
+        "atol 1e-8)")
+    src_np = src.astype(np.int32)
+    ex.step(src_np, np.ones(src.size, bool))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ex.step(src_np, np.ones(src.size, bool))
+    return time.perf_counter() - t0, Tw, Tm
+
+
+def segment_timing(ex, Tw, Tm) -> dict:
+    """Phase 6d: the segment sum at the largest shape the scale-18 path
+    gives it, the full-edge-list MFBF relax of a saturated frontier (the
+    first batch's own distances): kernel against the plain version on the
+    CPU (bitwise), times of the kernel, of the plain version on the card,
+    and of one ``index_add_`` of the tie-masked values (the library call
+    for the sum), and the bound."""
+    runs = ex._adj.coo.runs_mp
+    n = ex._adj.n
+    cand = Tw.index_select(1, runs.col) + runs.w
+    best = torch.full((Tw.shape[0], n + 1), INF, device=DEV)
+    best.scatter_reduce_(1, runs.seg.expand_as(cand), cand, "amin")
+    best = best[:, :n].contiguous()
+    val = Tm.index_select(1, runs.col)
+    args = (cand, best, val)
+    err = segment_check(args, runs.seg, runs.offsets, False,
+                        f"at {tuple(cand.shape)}")
+    ms = time_ms(lambda: segment_sum_cuda(*args, runs.offsets), iters=20)
+    plain_ms = time_ms(lambda: ref.segment_sum_ref(*args, runs.seg), iters=5,
+                       warmup=1)
+    masked = torch.where((cand == best.index_select(1, runs.seg))
+                         & torch.isfinite(cand), val, 0.0)
+    acc = torch.zeros((Tw.shape[0], n + 1), device=DEV)
+    lib_ms = time_ms(lambda: acc.index_add_(1, runs.seg, masked), iters=5,
+                     warmup=1)
+    b_ms, b_by = segment_bound(best, runs.offsets, 1)
+    log(f"time segment_sum {tuple(cand.shape)} -> {tuple(best.shape)}: "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, index_add_ "
+        f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+        f"{100 * b_ms / ms:.1f}% of bound; bitwise equal to the plain "
+        "version on the CPU")
+    return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib_ms)
+
+
+def phase6c(g12, lam, launches) -> None:
+    """Scale-12 exact BC through an unpinned ``solve`` (the planner picks
+    CSR) against phase 3's dense λ."""
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = solve(g12, BCQuery(), device=DEV)
+    dt = time.perf_counter() - t0
+    phase = tally(launches, SPARSE_PATH, "6c")
+    occ = res.plan.occupancy
+    log(f"6c: unpinned exact solve, rmat scale 12: {res.plan.summary()}; "
+        f"{dt:.3f}s, {g12.m * g12.n / dt:,.0f} TEPS (model), launches "
+        f"{phase}; occupancy: hit rate {occ['hit_rate']:.4f}, overflows "
+        f"{occ['overflows']}, relax calls {occ['relax_calls']}, batches "
+        f"{occ['batches']}")
+    if res.plan.backend != "csr":
+        raise AssertionError(f"6c: the planner chose {res.plan.backend}")
+    np.testing.assert_allclose(res.lam, lam, rtol=1e-5, atol=1e-8)
+    log("6c: λ matches phase 3's dense λ (rtol 1e-5, atol 1e-8)")
+
+
+def phase6d(launches, scale: int):
+    """Approximate BC of a scale-18 R-MAT graph through an unpinned
+    ``solve``, on the planner's own backend and n_b; the first batch's
+    checks and the segment sum's timing at this path's largest shape.
+    Returns (the graph, the segment sum's timing)."""
+    t0 = time.perf_counter()
+    g = graph(scale)
+    log(f"6d: rmat scale {scale} weighted: n={g.n} m={g.m} (built on "
+        f"the host in {time.perf_counter() - t0:.1f}s)")
+    q = BCQuery(mode="approx", eps=0.05, delta=0.1, topk=10)
+    pl = plan(g, q, device=DEV)
+    log(f"6d: {pl.summary()} execution={pl.execution.describe()}; sample "
+        f"budget {pl.sample_budget}, predicted {pl.predicted_seconds:.3f}s "
+        "(the reference's analytic model)")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ex = build_executor(g, pl, device=DEV)
+    torch.cuda.synchronize()
+    log(f"6d: executor built (adjacency upload) in "
+        f"{time.perf_counter() - t0:.3f}s")
+    t_batch, Tw, Tm = first_sparse_batch(ex, g, q)
+    seg_timing = segment_timing(ex, Tw, Tm)
+    del ex, Tw, Tm
+    torch.cuda.empty_cache()
+    est = -(-pl.sample_budget // pl.n_b) * t_batch
+    if est > EPOCH_LIMIT_S:
+        cap = max(pl.n_b, int(EPOCH_LIMIT_S / t_batch) * pl.n_b)
+        log(f"6d: one batch {t_batch:.3f}s, the budget's "
+            f"{-(-pl.sample_budget // pl.n_b)} batches ≈ {est:.0f}s > "
+            f"{EPOCH_LIMIT_S}s: max_samples capped at {cap} (budget "
+            f"{pl.sample_budget})")
+        q = dataclasses.replace(q, max_samples=cap)
+    else:
+        log(f"6d: one batch {t_batch:.3f}s, the budget's batches ≈ "
+            f"{est:.0f}s: not capped")
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = solve(g, q, device=DEV)
+    wall = time.perf_counter() - t0
+    phase = tally(launches, SPARSE_PATH, "6d")
+    peak = torch.cuda.max_memory_allocated()
+    a, occ = res.approx, res.plan.occupancy
+    log(f"6d: {res.plan.summary()}: {a.n_samples} samples, {a.n_epochs} "
+        f"epochs, converged={a.converged}, {res.seconds:.3f}s in the epochs "
+        f"({wall:.3f}s with planning and upload), "
+        f"{g.m * a.n_samples / res.seconds:,.0f} TEPS (model), launches "
+        f"{phase}, peak device memory {peak / 2**30:.2f} GiB")
+    log(f"6d: occupancy: hit rate {occ['hit_rate']:.4f}, overflows "
+        f"{occ['overflows']}, relax calls {occ['relax_calls']}, batches "
+        f"{occ['batches']}, iters bf/br {occ['iters_bf']}/{occ['iters_br']}")
+    if (res.plan.backend, res.plan.n_b) != (pl.backend, pl.n_b):
+        raise AssertionError("6d: solve ran another plan than the planner's")
+    if a.lam.shape != (g.n,) or not (np.all(np.isfinite(a.lam))
+                                       and np.all(np.isfinite(a.halfwidth))):
+        raise AssertionError("6d: λ̂ or its CI is not finite of (n,)")
+    top = a.topk(10)
+    log(f"6d: top-10 {top.tolist()} halfwidths "
+        f"{np.round(a.halfwidth[top], 1).tolist()}")
+    return g, seg_timing
+
+
+def phase6e(g, scale: int) -> None:
+    """``launch.calibrate`` at ``scale`` into a temporary file, and the
+    plan that calibration gives phase 6d's query on ``g``."""
+    build = os.path.join(ROOT, "build")
+    os.makedirs(build, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        path = os.path.join(tmp, "cost_calibration_torch.json")
+        t0 = time.perf_counter()
+        calibrate.main(["--scale", str(scale), "--device", DEV.type,
+                        "--out", path])
+        cal = load_calibration(path)
+    rates = ", ".join(f"{k} {r.ops_per_s:.4e} ops/s + "
+                      f"{r.overhead_s * 1e3:.3f} ms/call"
+                      for k, r in sorted(cal.rates.items()))
+    log(f"6e: calibration at scale {scale} in "
+        f"{time.perf_counter() - t0:.1f}s: {rates}")
+    pl_cal = BCPlanner(calibration=cal).plan(g, BCQuery(
+        mode="approx", eps=0.05, delta=0.1, topk=10), device=DEV)
+    log(f"6e: with it, n={g.n} plans backend={pl_cal.backend} "
+        f"n_b={pl_cal.n_b} predicted {pl_cal.predicted_seconds:.3f}s")
 
 
 def graph(scale: int):
@@ -433,17 +829,16 @@ def main() -> None:
         if b == 0:
             batch0["lam"] = lam.copy()
 
+    launches = {name: 0 for name in WRAPPERS}
     reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     lam = mfbc(g12, n_b=64, device="cuda", progress_cb=progress)
     dt = time.perf_counter() - t0
-    launches = counts()
+    phase = tally(launches, DENSE_PATH, "the scale-12 main path")
     n_batches = -(-g12.n // 64)
     log(f"main path: {n_batches} batches in {dt:.3f}s, "
-        f"{g12.m * g12.n / dt:,.0f} TEPS (model), launches {launches}")
-    if not all(v > 0 for v in launches.values()):
-        raise AssertionError(f"a kernel of the path never ran: {launches}")
+        f"{g12.m * g12.n / dt:,.0f} TEPS (model), launches {phase}")
     if lam.shape != (g12.n,) or not np.all(np.isfinite(lam)):
         raise AssertionError("λ is not finite of shape (n,)")
     t0 = time.perf_counter()
@@ -478,15 +873,11 @@ def main() -> None:
     lam8, Tw14, _ = mfbc_batch(adj14, src, valid)
     lam8 = lam8.cpu().numpy().astype(np.float64)
     dt14 = time.perf_counter() - t0
-    launches14 = counts()
-    for name in KERNELS:
-        launches[name] += launches14[name]
+    launches14 = tally(launches, DENSE_PATH, "the scale-14 batch")
     peak = torch.cuda.max_memory_allocated()
     log(f"scale 14: adjacency upload {t_adj:.3f}s, one 64-source batch "
         f"{dt14:.3f}s, launches {launches14}, peak device memory "
         f"{peak / 2**30:.2f} GiB")
-    if not all(v > 0 for v in launches14.values()):
-        raise AssertionError(f"a kernel never ran at scale 14: {launches14}")
     t0 = time.perf_counter()
     ref8 = brandes_bc(g14, sources=np.arange(8))
     log(f"oracle: 8 sources in {time.perf_counter() - t0:.1f}s (CPU)")
@@ -518,7 +909,7 @@ def main() -> None:
         reset_counts()
         torch.cuda.synchronize()
         out = sampled_path(g, label, DEV)
-        phase = counts()
+        phase = tally(launches, DENSE_PATH, label)
         peak = torch.cuda.max_memory_allocated()
         a = out["res"]
         log(f"{label}: n={g.n} m={g.m}: {a.n_samples} samples, "
@@ -526,10 +917,6 @@ def main() -> None:
             f"{out['seconds']:.3f}s in the epochs ({out['wall_s']:.3f}s "
             f"with planning and upload), {out['teps']:,.0f} TEPS (model), "
             f"launches {phase}, peak device memory {peak / 2**30:.2f} GiB")
-        if not all(v > 0 for v in phase.values()):
-            raise AssertionError(f"a kernel never ran in {label}: {phase}")
-        for name in KERNELS:
-            launches[name] += phase[name]
         if lam_exact is not None:  # 5a: against phase 3's exact λ
             err = float(np.abs(a.lam - lam_exact).max()) / (g.n * (g.n - 2))
             top = set(np.argsort(lam_exact)[::-1][:10].tolist())
@@ -557,13 +944,33 @@ def main() -> None:
         log(f"time segment_fold (64 rows, {n_slots} slot(s), 3 x {n14}): "
             f"{ms:.4f} ms")
 
-    print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": k["source"],
-         "replaces": k["replaces"], "launches": launches[name],
-         "max_abs_err": errs[name], "ms": timing[name][0],
-         "plain_ms": timing[name][1], "bound_ms": timing[name][2],
-         "bound_by": timing[name][3], "library_ms": None}
-        for name, k in KERNELS.items()]}), flush=True)
+    del x
+    torch.cuda.empty_cache()
+
+    # 6. the COO and CSR backends
+    seg_err = phase6a()
+    phase6b(g12, g14)
+    del g14
+    torch.cuda.empty_cache()
+
+    phase6c(g12, lam, launches)
+    g18, seg_timing = phase6d(launches, 18)
+    phase6e(g18, 14)
+
+    rows = [{"name": name, "route": "cuda", "source": k["source"],
+             "replaces": k["replaces"], "launches": launches[name],
+             "max_abs_err": errs[name], "ms": timing[name][0],
+             "plain_ms": timing[name][1], "bound_ms": timing[name][2],
+             "bound_by": timing[name][3], "library_ms": None}
+            for name, k in KERNELS.items()]
+    rows.append({"name": "segment_sum", "route": "cuda",
+                 "source": SEGMENT_SUM["source"],
+                 "replaces": SEGMENT_SUM["replaces"],
+                 "launches": launches["segment_sum"],
+                 "max_abs_err": max(seg_err, seg_timing["err"]),
+                 **{k: seg_timing[k] for k in ("ms", "plain_ms", "bound_ms",
+                                               "bound_by", "library_ms")}})
+    print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,14 +1,15 @@
 """repro_torch.bc — the betweenness-centrality solver facade of the port.
 
 One query → plan → executor surface, ported from ``repro.bc`` for one
-device and the dense backend:
+device and the dense, COO and CSR backends:
 
 * ``BCQuery`` — what the caller wants (exact/approx, ε/δ/top-k/rule, seed,
   sample cap, optional n_b and ``ExecutionConfig`` pins).
 * ``BCPlanner`` / ``BCPlan`` — the configuration search as an inspectable,
   JSON-serializable object, equal to the reference's for the same query.
 * ``SingleHostExecutor`` — ``step`` / ``step_sum`` / ``step_segmented``
-  on the card's Hopper kernels (or their plain versions on the CPU).
+  on the card's Hopper kernels (or their plain versions on the CPU), and
+  the CSR backend's ``occupancy_summary``.
 * ``solve`` — the exact sweep and the adaptive/uniform sampling epochs.
 
 Typical use::
@@ -23,9 +24,8 @@ Typical use::
 The serving stack's fusion surface lives here too: ``plan_for_request``,
 ``BatchAssembler`` / ``FusedBatch`` / ``scatter`` and ``honest_converged``,
 and the refinement surface: ``ApproxCheckpoint``, ``checkpoint_from``,
-``resume_approx`` and ``carry_checkpoint``. Not ported yet: the COO and
-CSR backends (slice 3 of ROADMAP.md), metrics other than betweenness
-(slice 4), ``MeshExecutor`` (slice 6).
+``resume_approx`` and ``carry_checkpoint``. Not ported yet: metrics other
+than betweenness (slice 4 of ROADMAP.md), ``MeshExecutor`` (slice 6).
 """
 from repro_torch.approx.driver import (ApproxResult, LambdaEstimator,
                                        choose_sample_batch, stopping_check)

@@ -35,13 +35,12 @@ class Backend(str, enum.Enum):
     ``DENSE`` — tropical matmul over an (n, n) adjacency: the Hopper
     kernels (``kernels.tropical_mm`` / ``kernels.centpath_mm``) on the
     card, the blocked plain versions (``monoids.*_relax_dense``) on the
-    CPU. The only backend with a distributed (mesh) step, and the only
-    one the port runs so far.
+    CPU. The only backend with a distributed (mesh) step.
 
     ``COO`` — edge-list relaxation with segment reductions; work scales
     with nnz instead of n². ``CSR`` — the same over a frontier-compacted
-    arc list. Both single-host only, and both slice 3 of ROADMAP.md: the
-    planner may choose them, the executor raises ``NotImplementedError``.
+    arc list. Both single-host only; their tie sums go through the
+    segment-sum kernel (``kernels.segment_sum``) on the card.
     """
 
     DENSE = "dense"

@@ -19,10 +19,13 @@ the card every bucket launches the kernels with the split count that
 folds each slot's rows in row order (``core.mfbc.segment_fold``), so a
 slot's statistics are bitwise the same in any bucket.
 
-What is ported: the ``BackendSpec`` registry with DENSE registered, and
-``SingleHostExecutor`` for betweenness. A COO or CSR plan raises
-``NotImplementedError`` naming slice 3 of ROADMAP.md, another metric
-slice 4, a mesh plan slice 6.
+What is ported: the ``BackendSpec`` registry with DENSE, COO and CSR
+registered, and ``SingleHostExecutor`` for betweenness, with the CSR
+occupancy side channel (``occupancy_summary``). Another metric raises
+``NotImplementedError`` naming slice 4 of ROADMAP.md, a mesh plan slice 6.
+On the CSR backend, as on COO, a slot's fused statistics stay bitwise
+those of its rows alone because the segment sums add each segment in arc
+order, whatever the batch's union frontier makes the bucket pick choose.
 """
 from __future__ import annotations
 
@@ -36,14 +39,15 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.bc.config import Backend, as_backend
 from repro_torch.bc.planner import _MESH_MSG, BCPlan, bucket_sizes
-from repro_torch.core.adjacency import dense_adj_from_graph
+from repro_torch.core.adjacency import (CsrAdj, coo_adj_from_graph,
+                                        csr_adj_from_graph,
+                                        dense_adj_from_graph)
 from repro_torch.core.mfbc import (mfbc_batch, mfbc_batch_moments,
-                                   mfbc_batch_moments_segmented)
+                                   mfbc_batch_moments_segmented,
+                                   mfbc_batch_moments_traced)
 from repro_torch.graphs.formats import Graph
 
 Moments = Tuple[np.ndarray, np.ndarray, np.ndarray]  # (S1, S2, n_reach)
-
-_SLICE = {Backend.COO: 3, Backend.CSR: 3}
 
 
 def _metric_error(what) -> NotImplementedError:
@@ -85,11 +89,6 @@ def backend_spec(backend: Union[Backend, str]) -> BackendSpec:
     try:
         return _BACKEND_REGISTRY[be]
     except KeyError:
-        if be in _SLICE:
-            raise NotImplementedError(
-                f"backend {be.value!r} is not ported yet: the COO and CSR "
-                f"backends are slice {_SLICE[be]} of ROADMAP.md; pin "
-                "ExecutionConfig(backend='dense')") from None
         raise ValueError(f"no executor registered for backend "
                          f"{be.value!r}") from None
 
@@ -106,6 +105,20 @@ register_backend(BackendSpec(
         g, block=plan.block, device=device).for_batches(plan.n_b),
     placements=("single_host", "mesh"),
     supports_kernel=True))
+
+register_backend(BackendSpec(
+    backend=Backend.COO,
+    make_adjacency=lambda g, plan, device: coo_adj_from_graph(
+        g, device=device),
+    placements=("single_host",)))
+
+register_backend(BackendSpec(
+    backend=Backend.CSR,
+    # The plan's n_b sizes the compaction capacity ladder
+    # (core.adjacency.frontier_caps).
+    make_adjacency=lambda g, plan, device: csr_adj_from_graph(
+        g, n_b=plan.n_b, device=device),
+    placements=("single_host",)))
 
 
 @runtime_checkable
@@ -255,11 +268,15 @@ def _host(s1, s2, nr) -> Moments:
 
 
 class SingleHostExecutor(_ExecutorBase):
-    """One-device moments step on the plan's backend (dense so far).
+    """One-device moments step on the plan's backend (dense blocked
+    products, COO, or frontier-compacted CSR segment-op relax).
 
     ``device``: "cuda" (default; raises without a card) runs the Hopper
     kernels, "cpu" their plain versions. The adjacency is built once, on
-    that device, from the plan's backend via the registry.
+    that device, from the plan's backend via the registry. A ``CsrAdj``
+    adjacency routes ``step`` and ``step_sum`` through the traced moments
+    entry point and accumulates the frontier occupancy side channel
+    (``occupancy_summary``).
     """
 
     def __init__(self, g: Graph, plan: BCPlan, *, device="cuda"):
@@ -271,16 +288,61 @@ class SingleHostExecutor(_ExecutorBase):
         self.n_b = plan.n_b
         self.buckets = plan.buckets or bucket_sizes(plan.n_b)
         self._adj = spec.make_adjacency(g, plan, self.device)
+        # The occupancy trace is collected for the compacting adjacency
+        # only; dense and COO moments run the untraced path.
+        self._trace = isinstance(self._adj, CsrAdj)
+        self._occ: Dict[str, Any] = {}
 
     def _put(self, x: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(x).to(self.device)
 
+    def _record_occupancy(self, tr_bf, tr_br) -> None:
+        per_bf = list(tr_bf.fnnz[:min(tr_bf.iters, len(tr_bf.fnnz))])
+        per_br = list(tr_br.fnnz[:min(tr_br.iters, len(tr_br.fnnz))])
+        o = self._occ
+        o["batches"] = o.get("batches", 0) + 1
+        o["iters_bf"], o["iters_br"] = tr_bf.iters, tr_br.iters
+        o["per_iter_bf"], o["per_iter_br"] = per_bf, per_br
+        o["fnnz_first"] = per_bf[0] if per_bf else 0
+        o["fnnz_last"] = per_bf[-1] if per_bf else 0
+        o["overflows"] = (o.get("overflows", 0) + tr_bf.overflows
+                          + tr_br.overflows)
+        o["compact_hits"] = (o.get("compact_hits", 0) + tr_bf.compact_hits
+                             + tr_br.compact_hits)
+        o["relax_calls"] = (o.get("relax_calls", 0) + tr_bf.iters
+                            + tr_br.iters)
+        o["hit_rate"] = o["compact_hits"] / max(o["relax_calls"], 1)
+
+    def occupancy_summary(self):
+        """Accumulated frontier-occupancy trace, or None when not traced.
+
+        Per-iteration profiles (``per_iter_bf``/``per_iter_br``, forward
+        and backward sweep frontier nnz) are from the most recent batch;
+        ``overflows``/``compact_hits``/``relax_calls``/``hit_rate``
+        accumulate over every traced batch this executor ran.
+        """
+        return dict(self._occ) if self._occ else None
+
+    def _traced(self, src, val):
+        s1, s2, nr, tr_bf, tr_br = mfbc_batch_moments_traced(
+            self._adj, self._put(src), self._put(val))
+        self._record_occupancy(tr_bf, tr_br)
+        return s1, s2, nr
+
     def _moments(self, src, val) -> Moments:
+        if self._trace:
+            return _host(*self._traced(src, val))
         return _host(*mfbc_batch_moments(self._adj, self._put(src),
                                          self._put(val)))
 
     def _sum(self, src, val) -> np.ndarray:
-        lam_b, _, _ = mfbc_batch(self._adj, self._put(src), self._put(val))
+        if self._trace:
+            # S1 of the moments IS λ_partial: the exact sweep rides the
+            # traced path at the cost of one discarded elementwise square.
+            lam_b = self._traced(src, val)[0]
+        else:
+            lam_b, _, _ = mfbc_batch(self._adj, self._put(src),
+                                     self._put(val))
         return lam_b.cpu().numpy().astype(np.float64)
 
     def _segmented(self, src, val, sid, n_seg: int) -> Moments:
@@ -292,8 +354,8 @@ def build_executor(g: Graph, plan: BCPlan, *, mesh=None,
                    device="cuda") -> BatchExecutor:
     """Instantiate the executor a ``BCPlan`` calls for, on ``device``.
 
-    A mesh plan (or an explicit ``mesh``), an unported backend or another
-    metric raises ``NotImplementedError`` naming its slice of ROADMAP.md.
+    A mesh plan (or an explicit ``mesh``) or another metric raises
+    ``NotImplementedError`` naming its slice of ROADMAP.md.
     """
     spec = backend_spec(plan.backend)
     if plan.placement == "mesh" or mesh is not None:

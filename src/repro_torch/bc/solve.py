@@ -12,10 +12,10 @@ protocol:
   epoch boundaries with a geometrically split failure budget, stop early
   on top-k CI separation.
 
-The identity contract: a plan passes through ``solve`` by identity
-(``solve(..., plan=pl).plan is pl``) unless the executor reports a
-frontier-occupancy trace, which only the CSR backend of slice 3 collects
-(``_with_occupancy``). Dense plans are never copied.
+The identity contract: a dense or COO plan passes through ``solve`` by
+identity (``solve(..., plan=pl).plan is pl``); a CSR plan comes back as a
+copy that carries the executor's frontier-occupancy trace
+(``BCPlan.occupancy``, ``_with_occupancy``), as in the reference.
 """
 from __future__ import annotations
 
@@ -136,9 +136,9 @@ def solve(g: Graph, query: Optional[BCQuery] = None, *, mesh=None,
 def _with_occupancy(plan: BCPlan, executor: BatchExecutor) -> BCPlan:
     """Attach the executor's frontier-occupancy trace to the executed plan.
 
-    Only a frontier-compacting executor collects one (``CsrAdj``, slice 3
-    of ROADMAP.md); without it the plan passes through *by identity*, so
-    callers that cache the plan object keep their reference.
+    Only the frontier-compacting CSR executor collects one; without it
+    the plan passes through *by identity*, so callers that cache the plan
+    object keep their reference.
     """
     occ_fn = getattr(executor, "occupancy_summary", None)
     occ = occ_fn() if occ_fn is not None else None

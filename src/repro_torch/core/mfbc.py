@@ -4,10 +4,11 @@
 batches. Each batch runs MFBF, the t = s self-mask and MFBr on the device;
 the batch loop and the float64 λ accumulator live on the host.
 
-The exact sweep (``mfbc``, ``mfbc_batch``) and the sampled path's moments
-entry points (``mfbc_batch_moments``, ``mfbc_batch_moments_segmented``) are
-ported; the traced and metric entry points of the reference wait for
-slices 3 and 4 of ROADMAP.md.
+The exact sweep (``mfbc``, ``mfbc_batch``), the sampled path's moments
+entry points (``mfbc_batch_moments``, ``mfbc_batch_moments_segmented``) and
+the traced one (``mfbc_batch_moments_traced``) are ported, on the dense,
+COO and CSR backends; the metric entry points wait for slice 4 of
+ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -19,29 +20,45 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core import mfbf as _mfbf
 from repro_torch.core import mfbr as _mfbr
-from repro_torch.core.adjacency import dense_adj_from_graph
+from repro_torch.core.adjacency import (coo_adj_from_graph,
+                                        csr_adj_from_graph,
+                                        dense_adj_from_graph)
 from repro_torch.core.monoids import INF
 from repro_torch.graphs.formats import Graph
 
 
 def _batch_contrib(adj, sources: torch.Tensor, valid: torch.Tensor, *,
-                   iterate: str, max_iters_bf: int, max_iters_br: int):
+                   iterate: str = "while", max_iters_bf: int = 0,
+                   max_iters_br: int = 0, trace: bool = False):
     """Shared Algorithm 3 batch body: per-source contributions δ_s(v).
 
-    Returns (contrib, mask, Tw, Tm) with contrib (nb, n) zeroed on
-    unreachable/padding entries.
+    Returns (contrib, mask, Tw, Tm, traces) with contrib (nb, n) zeroed on
+    unreachable/padding entries; ``traces`` is the (MFBF, MFBr)
+    ``SweepTrace`` pair with ``trace=True`` (the sweeps then run their
+    while loops), else None.
     """
-    Tw, Tm = _mfbf.mfbf(adj, sources, iterate=iterate, max_iters=max_iters_bf)
+    traces = None
+    if trace:
+        Tw, Tm, tr_bf = _mfbf.mfbf(adj, sources, max_iters=max_iters_bf,
+                                   trace=True)
+    else:
+        Tw, Tm = _mfbf.mfbf(adj, sources, iterate=iterate,
+                            max_iters=max_iters_bf)
     # Exclude the t = s destination (σ(s, t, v) = 0 when t = s): mask the
     # source's own column to (∞, 1) — the 1 keeps reciprocals safe. Tw and
     # Tm are fresh tensors of this batch, so they are written in place.
     rows = torch.arange(sources.shape[0], device=Tw.device)
     Tw[rows, sources.long()] = INF
     Tm[rows, sources.long()] = 1.0
-    Zp = _mfbr.mfbr(adj, Tw, Tm, iterate=iterate, max_iters=max_iters_br)
+    if trace:
+        Zp, tr_br = _mfbr.mfbr(adj, Tw, Tm, max_iters=max_iters_br,
+                               trace=True)
+        traces = (tr_bf, tr_br)
+    else:
+        Zp = _mfbr.mfbr(adj, Tw, Tm, iterate=iterate, max_iters=max_iters_br)
     mask = torch.isfinite(Tw) & valid[:, None]
     contrib = torch.where(mask, Zp * Tm, 0.0)
-    return contrib, mask, Tw, Tm
+    return contrib, mask, Tw, Tm, traces
 
 
 def mfbc_batch(adj, sources: torch.Tensor, valid: torch.Tensor, *,
@@ -52,9 +69,9 @@ def mfbc_batch(adj, sources: torch.Tensor, valid: torch.Tensor, *,
 
     valid: (nb,) bool — False for padding sources (contribute nothing).
     """
-    contrib, _, Tw, Tm = _batch_contrib(adj, sources, valid, iterate=iterate,
-                                        max_iters_bf=max_iters_bf,
-                                        max_iters_br=max_iters_br)
+    contrib, _, Tw, Tm, _ = _batch_contrib(
+        adj, sources, valid, iterate=iterate, max_iters_bf=max_iters_bf,
+        max_iters_br=max_iters_br)
     return contrib.sum(dim=0), Tw, Tm
 
 
@@ -70,11 +87,28 @@ def mfbc_batch_moments(adj, sources: torch.Tensor, valid: torch.Tensor, *,
     ``mfbc_batch``'s λ_partial; S2 feeds the confidence intervals of the
     sampled estimator (``repro_torch.approx``).
     """
-    contrib, mask, _, _ = _batch_contrib(adj, sources, valid, iterate=iterate,
-                                         max_iters_bf=max_iters_bf,
-                                         max_iters_br=max_iters_br)
+    contrib, mask, _, _, _ = _batch_contrib(
+        adj, sources, valid, iterate=iterate, max_iters_bf=max_iters_bf,
+        max_iters_br=max_iters_br)
     return (contrib.sum(dim=0), (contrib * contrib).sum(dim=0),
             mask.sum(dim=0, dtype=torch.int32))
+
+
+def mfbc_batch_moments_traced(adj, sources: torch.Tensor,
+                              valid: torch.Tensor, *, max_iters_bf: int = 0,
+                              max_iters_br: int = 0):
+    """``mfbc_batch_moments`` plus the per-iteration occupancy traces.
+
+    Returns (S1, S2, n_reach, trace_bf, trace_br), the traces being the
+    ``repro_torch.core.mfbf.SweepTrace`` of the forward (MFBF) and backward
+    (MFBr) sweeps. The moments come from the same relaxation sequence as
+    the untraced while loop, so they are bitwise unchanged.
+    """
+    contrib, mask, _, _, (tr_bf, tr_br) = _batch_contrib(
+        adj, sources, valid, max_iters_bf=max_iters_bf,
+        max_iters_br=max_iters_br, trace=True)
+    return (contrib.sum(dim=0), (contrib * contrib).sum(dim=0),
+            mask.sum(dim=0, dtype=torch.int32), tr_bf, tr_br)
 
 
 def segment_fold(x: torch.Tensor, slot_ids: np.ndarray,
@@ -133,9 +167,9 @@ def mfbc_batch_moments_segmented(adj, sources: torch.Tensor,
     (``DenseAdj.for_batches``) keeps every row's contribution independent
     of the batch size.
     """
-    contrib, mask, _, _ = _batch_contrib(adj, sources, valid, iterate=iterate,
-                                         max_iters_bf=max_iters_bf,
-                                         max_iters_br=max_iters_br)
+    contrib, mask, _, _, _ = _batch_contrib(
+        adj, sources, valid, iterate=iterate, max_iters_bf=max_iters_bf,
+        max_iters_br=max_iters_br)
     # one fold for the three fields; counts below 2²⁴ are exact in float32
     folded = segment_fold(torch.stack(
         [contrib, contrib * contrib, mask.to(contrib.dtype)], dim=1),
@@ -152,7 +186,8 @@ def mfbc(g: Graph, *, n_b: Optional[int] = None, backend: str = "dense",
     Args:
       g: host COO graph (positive weights).
       n_b: batch size (paper's memory/time tradeoff). Default min(n, 64).
-      backend: "dense" only; the sparse backends are not ported yet.
+      backend: "dense" (the product kernels), "coo" (segment-op message
+        passing) or "csr" (frontier-compacted segment-op message passing).
       iterate: "while" | "fori" (fixed ``max_iters`` iterations).
       max_iters: iteration bound for "fori" (default n-1).
       block: u-block of the SP-DAG child count.
@@ -165,15 +200,18 @@ def mfbc(g: Graph, *, n_b: Optional[int] = None, backend: str = "dense",
       λ: (n,) float64 centrality scores (ordered-pair convention, endpoints
       excluded — matches the paper's λ definition).
     """
-    if backend != "dense":
-        raise NotImplementedError(
-            f"backend {backend!r} is not ported yet: the COO and CSR "
-            "backends are slice 3 of ROADMAP.md")
     dev = resolve_device(device)
     n = g.n
     if n_b is None:
         n_b = min(n, 64)
-    adj = dense_adj_from_graph(g, block=block, device=dev)
+    if backend == "dense":
+        adj = dense_adj_from_graph(g, block=block, device=dev)
+    elif backend == "coo":
+        adj = coo_adj_from_graph(g, device=dev)
+    elif backend == "csr":
+        adj = csr_adj_from_graph(g, n_b=n_b, device=dev)
+    else:
+        raise ValueError(f"unknown backend {backend!r}")
     all_sources = np.arange(n, dtype=np.int32) if sources is None \
         else np.asarray(sources, dtype=np.int32)
     n_batches = -(-all_sources.shape[0] // n_b)

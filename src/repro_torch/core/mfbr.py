@@ -20,12 +20,15 @@ The caller must mask the self-destination ``T(s, s̄(s)) = (∞, 1)`` first
 (σ(s, t, v) with t = s is excluded from betweenness by definition).
 
 As in ``mfbf``, ``iterate="while"`` reads one count per round from the
-device: the population of the next frontier, taken from the ``newly`` mask.
+device: the population of the next frontier, taken from the ``newly`` mask
+(with a ``CsrAdj``, in the same copy, the counts of its next bucket pick).
+``trace=True`` also returns the sweep's ``SweepTrace``.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core.mfbf import empty_trace, read_counts, record
 from repro_torch.core.monoids import INF, Centpath
 
 
@@ -35,24 +38,28 @@ def _seed_frontier(Tw, Tm, Zp, newly):
     return Centpath(Fw, Fp, newly.to(Tw.dtype))
 
 
-def _step(adj, Tw, Tm, finite, state):
+def _step(adj, Tw, Tm, finite, state, hint):
     """One back-prop round on ``state = (Zp, c, done, F)``; returns the new
-    state and the population of the next frontier (vertices newly retired
-    this round)."""
+    state, the population of the next frontier (vertices newly retired
+    this round) and the relax's ``RelaxStats`` (None without compaction).
+    """
     Zp, c, done, F = state
-    P = adj.relax_cp(F)  # contributions shifted back along arcs
+    # P: contributions shifted back along arcs
+    relax = getattr(adj, "relax_cp_stats", None)
+    P, stats = (adj.relax_cp(F), None) if relax is None else relax(F, hint)
     contrib = (P.w == Tw) & finite & (P.c > 0)
     Zp = Zp + torch.where(contrib, P.p, 0.0)
     c = c - torch.where(contrib, P.c.to(c.dtype), 0)
     newly = finite & (c == 0) & ~done
     F = _seed_frontier(Tw, Tm, Zp, newly)
-    return (Zp, c, done | newly, F), newly.sum()
+    return (Zp, c, done | newly, F), newly.sum(), stats
 
 
 def mfbr(adj, Tw: torch.Tensor, Tm: torch.Tensor, *, iterate: str = "while",
-         max_iters: int = 0) -> torch.Tensor:
+         max_iters: int = 0, trace: bool = False):
     """Back-propagate centrality factors. Returns ``Zp`` with
-    ``Zp[s, v] = ζ(s, v)`` (0 for unreachable/masked vertices)."""
+    ``Zp[s, v] = ζ(s, v)`` (0 for unreachable/masked vertices).
+    With ``trace=True``: (Zp, SweepTrace) — see ``repro_torch.core.mfbf``."""
     if iterate not in ("while", "fori"):
         raise ValueError(f"iterate must be 'while' or 'fori', got {iterate!r}")
     bound = max_iters if max_iters > 0 else adj.n - 1
@@ -63,14 +70,18 @@ def mfbr(adj, Tw: torch.Tensor, Tm: torch.Tensor, *, iterate: str = "while",
     seed = finite & (c0 == 0)
     state = (Zp0, c0, seed, _seed_frontier(Tw, Tm_safe, Zp0, seed))
 
-    if iterate == "while":
-        nact = int(seed.sum().item())
-        it = 0
-        while nact > 0 and it < bound:
-            state, count = _step(adj, Tw, Tm_safe, finite, state)
-            nact = int(count.item())
-            it += 1
-    else:
+    if iterate == "fori" and not trace:
         for _ in range(bound):
-            state, _ = _step(adj, Tw, Tm_safe, finite, state)
-    return state[0]
+            state, _, _ = _step(adj, Tw, Tm_safe, finite, state, None)
+        return state[0]
+    probe = getattr(adj, "frontier_counts_cp", None)
+    tr = empty_trace()
+    nact, hint = read_counts(seed.sum(), state[3], probe)
+    it = 0
+    while nact > 0 and it < bound:
+        state, count, stats = _step(adj, Tw, Tm_safe, finite, state, hint)
+        if trace:
+            tr = record(tr, it, nact, stats)
+        nact, hint = read_counts(count, state[3], probe)
+        it += 1
+    return (state[0], tr) if trace else state[0]

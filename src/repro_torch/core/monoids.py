@@ -13,21 +13,39 @@ Frontiers are dense in structure and sparse in value. A multpath entry is
 ``w = -inf``. They are masked explicitly, because IEEE ``inf - a = inf``
 would otherwise win the centpath max-selection.
 
-The dense regime is a blocked generalized matmul against a dense ``(n, n)``
-adjacency (``inf`` off-structure), ``C(i,j) = ⊕_k f(T(i,k), A(k,j))``, swept
-over k-blocks in a Python loop so the ``(nb, bk, n)`` candidate block stays
-bounded. It is the plain PyTorch version of the CUDA kernels in
-``repro_torch.kernels`` and runs on any device. The COO and CSR regimes of
-``repro.core.monoids`` are not ported yet.
+Three relaxation regimes for each action:
+
+* ``*_relax_dense`` — a blocked generalized matmul against a dense
+  ``(n, n)`` adjacency (``inf`` off-structure), ``C(i,j) = ⊕_k f(T(i,k),
+  A(k,j))``, swept over k-blocks in a Python loop so the ``(nb, bk, n)``
+  candidate block stays bounded. It is the plain PyTorch version of the
+  two product kernels in ``repro_torch.kernels``.
+* ``*_relax_coo`` — edge-list relaxation in the ``(nb, E)`` layout: a
+  ``scatter_reduce`` amin/amax over a 1-D arc index (expanded as a view,
+  never materialized) and the tie-masked segment sum
+  (``repro_torch.kernels.segment_sum``: the Hopper kernel on the card, CPU
+  ``index_add_`` on the host).
+* ``*_relax_csr`` — frontier-compacted relaxation: the union-frontier
+  columns compact into ``vcap`` slots, only their incident CSR arc ranges
+  expand into ``ecap`` arc slots, and the candidates reduce with the same
+  segment ops, so per-iteration work tracks the maximal frontier.
+
+The segment sums add each segment's ties in ascending arc order
+(``arc_runs`` groups the arcs by a stable sort), the order of the
+reference's ``jax.ops.segment_sum`` on the CPU: so the compacted relax
+equals its COO fallback bitwise (the fallback only adds exact zeros), and
+a row's sums do not depend on the other rows of its batch.
 
 Equality of float path weights is exact (paper assumes exact arithmetic;
 integer-valued float32 weights are exact up to 2**24).
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Tuple
 
 import torch
+
+from repro_torch.kernels.segment_sum import segment_sum
 
 INF = float("inf")
 
@@ -149,3 +167,196 @@ def count_sp_children_dense(Tw: torch.Tensor, A: torch.Tensor, *,
         hit = (cand == Tw[:, None, u0:u0 + block]) & torch.isfinite(cand)
         acc += hit.sum(dim=2, dtype=torch.int32)
     return acc
+
+
+# ---------------------------------------------------------------------------
+# COO (sparse) regime: segment-op relaxations in the (nb, E) layout.
+# ---------------------------------------------------------------------------
+
+
+class Runs(NamedTuple):
+    """Arcs grouped into runs by the segment each one reduces into.
+
+    ``seg`` is ascending, from a stable sort, so inside a run the arcs keep
+    their order; ``col`` is the frontier column each arc reads, ``w`` its
+    weight, ``offsets`` (n+1,) the run bounds. Arcs with ``seg == n`` lie
+    past ``offsets[n]`` and reduce into no segment (dead slots).
+    """
+
+    col: torch.Tensor  # (L,) int64
+    seg: torch.Tensor  # (L,) int64, ascending, in [0, n]
+    w: torch.Tensor  # (L,) float32
+    offsets: torch.Tensor  # (n + 1,) int64
+
+
+def arc_runs(seg: torch.Tensor, col: torch.Tensor, w: torch.Tensor,
+             n: int) -> Runs:
+    """Group arcs by ``seg`` (a stable sort: ties keep their index order)."""
+    seg_s, order = torch.sort(seg, stable=True)
+    offsets = torch.searchsorted(
+        seg_s, torch.arange(n + 1, dtype=seg_s.dtype, device=seg_s.device))
+    return Runs(col[order], seg_s, w[order], offsets)
+
+
+def _segment_extreme(cand: torch.Tensor, seg: torch.Tensor, n: int,
+                     how: str) -> torch.Tensor:
+    """Per-(row, segment) amin/amax of ``cand`` (nb, L) over ``seg`` (L,):
+    exact in any order. An empty segment keeps the identity (±inf); column
+    n is the dump of the dead slots and is dropped."""
+    init = INF if how == "amin" else -INF
+    out = torch.full((cand.shape[0], n + 1), init, dtype=cand.dtype,
+                     device=cand.device)
+    out.scatter_reduce_(1, seg.expand_as(cand), cand, how, include_self=True)
+    return out[:, :n]
+
+
+def _multpath_relax_runs(F: Multpath, r: Runs, n: int) -> Multpath:
+    cand = F.w.index_select(1, r.col) + r.w  # (nb, L)
+    minw = _segment_extreme(cand, r.seg, n, "amin").contiguous()
+    m, _ = segment_sum(cand, minw, F.m.index_select(1, r.col), r.seg,
+                       r.offsets)
+    # an empty segment keeps minw = inf already; entries whose ties sum to
+    # zero multiplicity are inactive too
+    return Multpath(torch.where(m > 0, minw, INF), m)
+
+
+def _centpath_relax_runs(F: Centpath, r: Runs, n: int) -> Centpath:
+    Fw = F.w.index_select(1, r.col)
+    cand = torch.where(torch.isfinite(Fw) & torch.isfinite(r.w), Fw - r.w,
+                       -INF)
+    maxw = _segment_extreme(cand, r.seg, n, "amax").contiguous()
+    p, c = segment_sum(cand, maxw, F.p.index_select(1, r.col), r.seg,
+                       r.offsets, count=True)
+    return Centpath(torch.where(c > 0, maxw, -INF), p, c)
+
+
+def multpath_relax_coo(F: Multpath, src: torch.Tensor, dst: torch.Tensor,
+                       w: torch.Tensor, n: int, *,
+                       runs: Runs = None) -> Multpath:
+    """Edge-list version of ``multpath_relax_dense``.
+
+    src/dst/w: (E,) padded COO arcs (padding arcs carry w = inf).
+    F.w/F.m: (nb, n). ``runs``: the arcs already grouped by ``dst``
+    (``arc_runs(dst, src, w, n)``, what ``CooAdj`` keeps); grouped here
+    when omitted. Multiplicities sum over each ``dst`` in arc order.
+    """
+    return _multpath_relax_runs(
+        F, runs if runs is not None else arc_runs(dst, src, w, n), n)
+
+
+def centpath_relax_coo(F: Centpath, src: torch.Tensor, dst: torch.Tensor,
+                       w: torch.Tensor, n: int, *,
+                       runs: Runs = None) -> Centpath:
+    """Edge-list Brandes action: contributions flow dst -> src.
+
+    For arc (v -> u, a): cand(s, v) over children u: F.w(s, u) - a,
+    reduced over ``src`` (the predecessor side). ``runs``: the arcs
+    grouped by ``src`` (``arc_runs(src, dst, w, n)``).
+    """
+    return _centpath_relax_runs(
+        F, runs if runs is not None else arc_runs(src, dst, w, n), n)
+
+
+def count_sp_children_coo(Tw: torch.Tensor, src: torch.Tensor,
+                          dst: torch.Tensor, w: torch.Tensor,
+                          n: int) -> torch.Tensor:
+    """COO version of ``count_sp_children_dense``: int32 counts summed over
+    ``src`` (integer adds are exact in any order)."""
+    cand = Tw.index_select(1, src) + w  # (nb, E)
+    hit = (cand == Tw.index_select(1, dst)) & torch.isfinite(cand)
+    out = torch.zeros((Tw.shape[0], n), dtype=torch.int32, device=Tw.device)
+    return out.index_add_(1, src, hit.to(torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# Frontier-compacted CSR regime: work tracks the maximal frontier.
+# ---------------------------------------------------------------------------
+
+
+def _compact_cols(mask: torch.Tensor, indptr: torch.Tensor, vcap: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Compact the frontier's active *columns* into ``vcap`` slots.
+
+    mask: (nb, n) bool frontier occupancy; a column is active when any
+    batch row holds it (the union frontier). Returns (u, offs): per-slot
+    vertex id (0 past the population) and the inclusive cumsum of the
+    per-slot arc degrees (``offs[-1]`` = total incident arcs). Slots past
+    the population carry degree 0, so they own no arc range. The first
+    ``vcap`` active columns are taken in ascending order, as
+    ``jnp.nonzero(..., size=vcap, fill_value=n)`` does, without a host
+    sync: each column's rank goes by a cumsum, the rest to a dump slot.
+    """
+    n = mask.shape[1]
+    colmask = mask.any(dim=0)
+    rank = torch.cumsum(colmask, 0) - 1
+    keep = colmask & (rank < vcap)
+    cols = torch.full((vcap + 1,), n, dtype=torch.int64, device=mask.device)
+    cols.scatter_(0, torch.where(keep, rank, vcap),
+                  torch.arange(n, device=mask.device))
+    cols = cols[:vcap]
+    valid = cols < n
+    u = torch.where(valid, cols, 0)
+    deg = torch.where(valid, indptr[u + 1] - indptr[u], 0)
+    return u, torch.cumsum(deg, 0)
+
+
+def _expand_edges(u: torch.Tensor, offs: torch.Tensor, indptr: torch.Tensor,
+                  ecap: int):
+    """Expand compacted slots into ``ecap`` load-balanced arc slots.
+
+    Owner assignment is a scatter of each populated slot's start offset
+    followed by a cumulative max — two linear passes over ``ecap``, no
+    per-arc binary search. Returns (owner, arc_id, live); dead slots
+    (``pos >= offs[-1]``) are masked.
+    """
+    dev = u.device
+    pos = torch.arange(ecap, dtype=offs.dtype, device=dev)
+    starts = torch.cat([offs.new_zeros(1), offs[:-1]])
+    slots = torch.arange(u.shape[0], dtype=torch.int64, device=dev)
+    # Degree-0 slots share a start with their successor; dropping them
+    # keeps the cummax from handing their (empty) range to the wrong
+    # owner. Starts past ecap go to slot ecap, which is dropped (the
+    # reference's mode="drop").
+    tgt = torch.where((offs > starts) & (starts < ecap), starts, ecap)
+    owner = torch.zeros(ecap + 1, dtype=torch.int64, device=dev)
+    owner.scatter_reduce_(0, tgt, slots, "amax", include_self=True)
+    j = torch.cummax(owner[:ecap], 0).values
+    live = pos < offs[-1]
+    eid = torch.where(live, indptr[u[j]] + (pos - starts[j]), 0)
+    return j, eid, live
+
+
+def multpath_relax_csr(F: Multpath, indptr: torch.Tensor, dst: torch.Tensor,
+                       w: torch.Tensor, n: int, *, vcap: int, ecap: int
+                       ) -> Multpath:
+    """Frontier-compacted ``multpath_relax_coo`` over by-src CSR arcs.
+
+    Only arcs leaving the union frontier are touched. The result is
+    exactly ``multpath_relax_coo`` over the same by-src arcs *provided*
+    the frontier fits (active columns <= vcap, incident arcs <= ecap),
+    which ``CsrAdj`` guarantees by its bucket pick: arcs from inactive
+    columns hold F.w = inf in every batch row and can never tie.
+    """
+    u, offs = _compact_cols(torch.isfinite(F.w), indptr, vcap)
+    j, eid, live = _expand_edges(u, offs, indptr, ecap)
+    r = arc_runs(torch.where(live, dst[eid], n), u[j],
+                 torch.where(live, w[eid], INF), n)
+    return _multpath_relax_runs(F, r, n)
+
+
+def centpath_relax_csr(F: Centpath, indptr_in: torch.Tensor,
+                       src_in: torch.Tensor, w_in: torch.Tensor, n: int, *,
+                       vcap: int, ecap: int) -> Centpath:
+    """Frontier-compacted ``centpath_relax_coo`` over by-dst (CSC) arcs.
+
+    The active side of the Brandes action is the *child* (the arc's dst):
+    active child columns compact into slots, each child's in-arc range
+    expands, and the candidates reduce to the predecessor side. Equals
+    ``centpath_relax_coo`` under the same capacity proviso.
+    """
+    u, offs = _compact_cols(torch.isfinite(F.w), indptr_in, vcap)
+    j, eid, live = _expand_edges(u, offs, indptr_in, ecap)
+    wa = w_in[eid]
+    alive = live & torch.isfinite(wa)  # padding arcs never contribute
+    r = arc_runs(torch.where(alive, src_in[eid], n), u[j], wa, n)
+    return _centpath_relax_runs(F, r, n)

@@ -1,6 +1,8 @@
-"""Hand-written Hopper kernels for the two relaxations and their wrappers.
+"""Hand-written Hopper kernels of the relaxations and their wrappers.
 
 ``csrc/`` holds the CUDA sources, ``_build`` compiles them at first use,
-``tropical_mm`` / ``centpath_mm`` wrap them, ``ref`` holds their plain
-PyTorch versions and ``ops`` dispatches by device.
+``tropical_mm`` / ``centpath_mm`` wrap the two products and ``ops``
+dispatches them by device; ``segment_sum`` wraps and dispatches the
+tie-masked segment sum of the sparse relaxations; ``ref`` holds the plain
+PyTorch versions of all three.
 """

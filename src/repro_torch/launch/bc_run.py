@@ -1,16 +1,16 @@
 """Betweenness-centrality launcher of the PyTorch port.
 
   PYTHONPATH=src python -m repro_torch.launch.bc_run --graph rmat \
-      --scale 8 --degree 8 [--weighted] [--nb 64] [--backend dense|auto] \
-      [--device cuda|cpu] [--verify]
+      --scale 8 --degree 8 [--weighted] [--nb 64] \
+      [--backend auto|dense|coo|csr] [--device cuda|cpu] [--verify]
 
 Every mode is one call into ``repro_torch.bc``: build a ``BCQuery``, let
-``BCPlanner`` resolve the batch size (printed as the ``BCPlan`` line; pin
-it with ``--nb``, 0 = the planner's pick) and run ``solve`` on one device:
-the card by default, through the Hopper kernels; ``--device cpu`` runs
-their plain PyTorch versions. ``--backend`` defaults to ``dense``, the
-only backend ported so far; ``auto`` lets the planner choose, and a
-sparse choice exits naming slice 3 of ROADMAP.md.
+``BCPlanner`` resolve the backend and batch size (printed as the ``BCPlan``
+line; pin them with ``--backend`` and ``--nb``, 0 = the planner's pick)
+and run ``solve`` on one device: the card by default, through the Hopper
+kernels; ``--device cpu`` runs their plain PyTorch versions. ``--backend``
+defaults to ``auto``, the planner's regime choice (CSR on R-MAT); a CSR
+run also prints its frontier-occupancy summary.
 
 Approximate mode (adaptive source sampling, ``repro_torch.approx``):
 
@@ -89,9 +89,10 @@ def main(argv=None):
     ap.add_argument("--weighted", action="store_true")
     ap.add_argument("--nb", type=int, default=64,
                     help="batch size (0 = the planner's cost-model pick)")
-    ap.add_argument("--backend", default="dense", choices=["dense", "auto"],
+    ap.add_argument("--backend", default="auto",
+                    choices=["auto", "dense", "coo", "csr"],
                     help="relax backend (auto = the planner's regime "
-                         "choice; only dense is ported)")
+                         "choice)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--verify", action="store_true",
@@ -146,12 +147,13 @@ def main(argv=None):
             print(f"[bc] batch {b + 1}/{n_batches}")
 
     t0 = time.time()
-    try:
-        out = bc_solve(g, query, plan=pl, progress_cb=progress,
-                       device=args.device)
-    except NotImplementedError as e:  # e.g. --backend auto chose csr
-        raise SystemExit(f"[bc] cannot run this plan: {e}")
+    out = bc_solve(g, query, plan=pl, progress_cb=progress,
+                   device=args.device)
     dt = time.time() - t0
+    if out.plan.occupancy is not None:
+        occ = out.plan.occupancy
+        print(f"[bc] occupancy: {occ['relax_calls']} relax calls, hit rate "
+              f"{occ['hit_rate']:.3f}, {occ['overflows']} overflows")
     # TEPS as the paper counts it: every edge is traversed once per source
     teps = g.m * out.n_samples / dt
     if args.approx:

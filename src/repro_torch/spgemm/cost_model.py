@@ -209,8 +209,8 @@ def w_mfbc(n: int, m_edges: int, p: int, c: int, d: int, word: int = 8,
 # (fixed per-device-call overhead α, effective relax throughput 1/β) from
 # two batch sizes, and persists it; ``load_calibration`` is how the
 # planner and ``choose_bc_regime`` pick it up. The port's calibration
-# command comes with the sparse backends it fits (slice 3 of ROADMAP.md);
-# until then no file exists and plans use the analytic model.
+# command is ``repro_torch.launch.calibrate``; with no file, plans use the
+# analytic model.
 
 #: The port's own file (override with $REPRO_TORCH_BC_CALIBRATION). The
 #: reference's ``results/cost_calibration.json`` and $REPRO_BC_CALIBRATION

@@ -8,8 +8,9 @@
   halfwidths within rtol 1e-5.
 * ``resume_approx`` continues a checkpoint the reference wrote.
 * Dense plans pass through ``solve`` by identity.
-* What the port does not run yet raises ``NotImplementedError`` naming its
-  slice of ROADMAP.md; the port never reads the reference's calibration.
+* COO and unpinned (CSR) plans run; what the port does not run yet raises
+  ``NotImplementedError`` naming its slice of ROADMAP.md; the port never
+  reads the reference's calibration.
 * ``launch.bc_run --approx`` runs on the CPU and exits on a host without a
   card with the ``--device cpu`` hint.
 """
@@ -281,14 +282,19 @@ def test_resume_equals_a_scratch_run_at_the_tighter_eps():
 def test_unported_paths_name_their_slice():
     g = _graph()
     planner = tbc.BCPlanner(calibration=None)
+    # slice 3 is ported: a COO plan and an unpinned (CSR) plan run
     coo = planner.plan(g, tbc.BCQuery(execution=tbc.ExecutionConfig(
         backend="coo")), n_devices=1)
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        tbc.build_executor(g, coo, device="cpu")
+    ex = tbc.build_executor(g, coo, device="cpu")
+    assert ex.occupancy_summary() is None
     unpinned = planner.plan(g, tbc.BCQuery(), n_devices=1)
     assert unpinned.backend == "csr"  # the analytic regime on R-MAT
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        tbc.solve(g, tbc.BCQuery(), plan=unpinned, device="cpu")
+    exact = tbc.solve(g, tbc.BCQuery(), plan=unpinned, device="cpu")
+    np.testing.assert_allclose(exact.lam, brandes_bc(g), rtol=1e-5,
+                               atol=1e-8)
+    np.testing.assert_allclose(tbc.solve(g, tbc.BCQuery(), plan=coo,
+                                         device="cpu").lam,
+                               exact.lam, rtol=1e-5, atol=1e-8)
     mesh = planner.plan(g, tbc.BCQuery(n_b=16, execution=tbc.ExecutionConfig(
         backend="dense")), n_devices=8)
     assert mesh.placement == "mesh"
@@ -356,12 +362,20 @@ def test_bc_run_without_a_card_names_the_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("argv,slice_", [
-    # the analytic regime routes scale-8 R-MAT to CSR
-    (["--backend", "auto", "--nb", "0", "--scale", "8"], "slice 3"),
+    # the analytic regime routes scale-8 R-MAT to CSR, which runs since
+    # slice 3 (None: no slice to name)
+    (["--backend", "auto", "--nb", "0", "--scale", "8"], None),
     (["--mesh", "2x2"], "slice 6"),
     (["--metric", "closeness"], "slice 4"),
     (["--ckpt-dir", "ck"], "slice 7"),
 ])
-def test_bc_run_unported_options_name_their_slice(argv, slice_):
-    with pytest.raises(SystemExit, match=slice_):
-        bc_run.main(["--scale", "5", "--device", "cpu"] + argv)
+def test_bc_run_unported_options_name_their_slice(argv, slice_, capsys):
+    argv = ["--scale", "5", "--device", "cpu"] + argv
+    if slice_ is not None:
+        with pytest.raises(SystemExit, match=slice_):
+            bc_run.main(argv)
+        return
+    lam = bc_run.main(argv + ["--verify"])
+    out = capsys.readouterr().out
+    assert "backend=csr" in out and "verified against the Brandes" in out
+    assert np.all(np.isfinite(lam))

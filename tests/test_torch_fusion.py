@@ -324,3 +324,28 @@ def test_rows_bitwise_across_buckets_on_the_card(cuda):
             fused = ex.step_segmented(src, np.ones(b, bool), sid, 2)
             for x, y in zip(fused, alone):
                 np.testing.assert_array_equal(x[0], y[0])
+
+
+@pytest.mark.cuda
+def test_csr_rows_bitwise_across_buckets_on_the_card(cuda):
+    """The CSR backend on the card, executors of n_b = 64 and 128 at R-MAT
+    scale 12: a slot's rows give bitwise the same statistics alone (bucket
+    8) and fused at buckets 64 and 128, though each batch's union frontier
+    picks its own capacity buckets: the segment sums add in arc order."""
+    g = rmat(12, 16, seed=0, weighted=True,
+             max_weight=100).remove_isolated()[0]
+    rng = np.random.default_rng(1)
+    rows = rng.integers(0, g.n, 5).astype(np.int32)
+    for n_b in (64, 128):
+        ex = build_executor(g, plan(g, BCQuery(
+            mode="approx", n_b=n_b, execution=ExecutionConfig(
+                backend="csr")), n_devices=1), device=cuda)
+        alone = ex.step_segmented(rows, np.ones(5, bool),
+                                  np.zeros(5, np.int32), 1)
+        src = np.concatenate([rows, rng.integers(0, g.n, n_b - 5).astype(
+            np.int32)])
+        sid = np.repeat(np.array([0, 1], np.int32), [5, n_b - 5])
+        for _ in range(2):
+            fused = ex.step_segmented(src, np.ones(n_b, bool), sid, 2)
+            for x, y in zip(fused, alone):
+                np.testing.assert_array_equal(x[0], y[0])

@@ -199,11 +199,20 @@ def test_batch_sizes_equivalent_with_ragged_tail():
 
 
 def test_unported_backend_names_its_slice():
-    g = tgen.path_graph(4)
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        mfbc(g, backend="coo", device="cpu")
+    """Slice 3 ported the sparse backends: COO and CSR run and agree with
+    the oracle; an unknown backend or iterate mode is refused."""
+    g = tgen.ring_of_cliques(3, 4, weighted=True, seed=2)
+    want = brandes_bc(g)
+    for backend in ("coo", "csr"):
+        np.testing.assert_allclose(mfbc(g, n_b=5, backend=backend,
+                                        device="cpu"),
+                                   want, rtol=1e-5, atol=1e-8)
+    with pytest.raises(ValueError, match="unknown backend"):
+        mfbc(g, backend="ell", device="cpu")
     with pytest.raises(ValueError, match="iterate"):
         mfbc(g, iterate="scan", device="cpu")
+    with pytest.raises(ValueError, match="iterate"):
+        mfbc(g, backend="csr", iterate="scan", device="cpu")
 
 
 def test_bc_run_cli_verifies_on_cpu():
