@@ -39,8 +39,8 @@ class Backend(str, enum.Enum):
 
     ``COO`` — edge-list relaxation with segment reductions; work scales
     with nnz instead of n². ``CSR`` — the same over a frontier-compacted
-    arc list. Both single-host only; their tie sums go through the
-    segment-sum kernel (``kernels.segment_sum``) on the card.
+    arc list. Both single-host only; their relax runs in the sparse-relax
+    kernel (``kernels.segment_relax``) on the card.
     """
 
     DENSE = "dense"

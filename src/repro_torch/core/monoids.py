@@ -20,15 +20,18 @@ Three relaxation regimes for each action:
   A(k,j))``, swept over k-blocks in a Python loop so the ``(nb, bk, n)``
   candidate block stays bounded. It is the plain PyTorch version of the
   two product kernels in ``repro_torch.kernels``.
-* ``*_relax_coo`` — edge-list relaxation in the ``(nb, E)`` layout: a
-  ``scatter_reduce`` amin/amax over a 1-D arc index (expanded as a view,
-  never materialized) and the tie-masked segment sum
-  (``repro_torch.kernels.segment_sum``: the Hopper kernel on the card, CPU
-  ``index_add_`` on the host).
+* ``*_relax_coo`` — edge-list relaxation over the arcs grouped into runs
+  by the segment they reduce into (``Runs``): the gather of F, the per-run
+  min/max and the tie sums, in one call of
+  ``repro_torch.kernels.segment_relax`` — on the card the Hopper kernel
+  ``segment_relax.cu``, which never builds an ``(nb, E)`` operand; on the
+  host its plain version (``index_select``, ``scatter_reduce_`` amin/amax
+  over a 1-D index expanded as a view, and CPU ``index_add_``).
 * ``*_relax_csr`` — frontier-compacted relaxation: the union-frontier
   columns compact into ``vcap`` slots, only their incident CSR arc ranges
-  expand into ``ecap`` arc slots, and the candidates reduce with the same
-  segment ops, so per-iteration work tracks the maximal frontier.
+  expand into ``ecap`` arc slots, grouped into runs by a stable sort, and
+  reduce through the same call, so per-iteration work tracks the maximal
+  frontier.
 
 The segment sums add each segment's ties in ascending arc order
 (``arc_runs`` groups the arcs by a stable sort), the order of the
@@ -45,7 +48,8 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from repro_torch.kernels.segment_sum import segment_sum
+from repro_torch.kernels.segment_relax import (centpath_segment_relax,
+                                               multpath_segment_relax)
 
 INF = float("inf")
 
@@ -198,36 +202,14 @@ def arc_runs(seg: torch.Tensor, col: torch.Tensor, w: torch.Tensor,
     return Runs(col[order], seg_s, w[order], offsets)
 
 
-def _segment_extreme(cand: torch.Tensor, seg: torch.Tensor, n: int,
-                     how: str) -> torch.Tensor:
-    """Per-(row, segment) amin/amax of ``cand`` (nb, L) over ``seg`` (L,):
-    exact in any order. An empty segment keeps the identity (±inf); column
-    n is the dump of the dead slots and is dropped."""
-    init = INF if how == "amin" else -INF
-    out = torch.full((cand.shape[0], n + 1), init, dtype=cand.dtype,
-                     device=cand.device)
-    out.scatter_reduce_(1, seg.expand_as(cand), cand, how, include_self=True)
-    return out[:, :n]
+def _multpath_relax_runs(F: Multpath, r: Runs) -> Multpath:
+    return Multpath(*multpath_segment_relax(F.w, F.m, r.col, r.seg, r.w,
+                                            r.offsets))
 
 
-def _multpath_relax_runs(F: Multpath, r: Runs, n: int) -> Multpath:
-    cand = F.w.index_select(1, r.col) + r.w  # (nb, L)
-    minw = _segment_extreme(cand, r.seg, n, "amin").contiguous()
-    m, _ = segment_sum(cand, minw, F.m.index_select(1, r.col), r.seg,
-                       r.offsets)
-    # an empty segment keeps minw = inf already; entries whose ties sum to
-    # zero multiplicity are inactive too
-    return Multpath(torch.where(m > 0, minw, INF), m)
-
-
-def _centpath_relax_runs(F: Centpath, r: Runs, n: int) -> Centpath:
-    Fw = F.w.index_select(1, r.col)
-    cand = torch.where(torch.isfinite(Fw) & torch.isfinite(r.w), Fw - r.w,
-                       -INF)
-    maxw = _segment_extreme(cand, r.seg, n, "amax").contiguous()
-    p, c = segment_sum(cand, maxw, F.p.index_select(1, r.col), r.seg,
-                       r.offsets, count=True)
-    return Centpath(torch.where(c > 0, maxw, -INF), p, c)
+def _centpath_relax_runs(F: Centpath, r: Runs) -> Centpath:
+    return Centpath(*centpath_segment_relax(F.w, F.p, r.col, r.seg, r.w,
+                                            r.offsets))
 
 
 def multpath_relax_coo(F: Multpath, src: torch.Tensor, dst: torch.Tensor,
@@ -241,7 +223,7 @@ def multpath_relax_coo(F: Multpath, src: torch.Tensor, dst: torch.Tensor,
     when omitted. Multiplicities sum over each ``dst`` in arc order.
     """
     return _multpath_relax_runs(
-        F, runs if runs is not None else arc_runs(dst, src, w, n), n)
+        F, runs if runs is not None else arc_runs(dst, src, w, n))
 
 
 def centpath_relax_coo(F: Centpath, src: torch.Tensor, dst: torch.Tensor,
@@ -254,7 +236,7 @@ def centpath_relax_coo(F: Centpath, src: torch.Tensor, dst: torch.Tensor,
     grouped by ``src`` (``arc_runs(src, dst, w, n)``).
     """
     return _centpath_relax_runs(
-        F, runs if runs is not None else arc_runs(src, dst, w, n), n)
+        F, runs if runs is not None else arc_runs(src, dst, w, n))
 
 
 def count_sp_children_coo(Tw: torch.Tensor, src: torch.Tensor,
@@ -326,6 +308,23 @@ def _expand_edges(u: torch.Tensor, offs: torch.Tensor, indptr: torch.Tensor,
     return j, eid, live
 
 
+def csr_runs(Fw: torch.Tensor, indptr: torch.Tensor, seg: torch.Tensor,
+             w: torch.Tensor, n: int, *, vcap: int, ecap: int) -> Runs:
+    """The union frontier's incident arcs, grouped into runs by ``seg``.
+
+    The columns active in any row of ``Fw`` compact into ``vcap`` slots,
+    their ``indptr`` arc ranges expand into ``ecap`` arc slots, and each
+    arc reads its slot's column. Dead slots and padding arcs (w = inf,
+    which never reach a tie) go to segment n, past ``offsets[n]``.
+    """
+    u, offs = _compact_cols(torch.isfinite(Fw), indptr, vcap)
+    j, eid, live = _expand_edges(u, offs, indptr, ecap)
+    wa = w[eid]
+    alive = live & torch.isfinite(wa)
+    return arc_runs(torch.where(alive, seg[eid], n), u[j],
+                    torch.where(alive, wa, INF), n)
+
+
 def multpath_relax_csr(F: Multpath, indptr: torch.Tensor, dst: torch.Tensor,
                        w: torch.Tensor, n: int, *, vcap: int, ecap: int
                        ) -> Multpath:
@@ -337,11 +336,8 @@ def multpath_relax_csr(F: Multpath, indptr: torch.Tensor, dst: torch.Tensor,
     which ``CsrAdj`` guarantees by its bucket pick: arcs from inactive
     columns hold F.w = inf in every batch row and can never tie.
     """
-    u, offs = _compact_cols(torch.isfinite(F.w), indptr, vcap)
-    j, eid, live = _expand_edges(u, offs, indptr, ecap)
-    r = arc_runs(torch.where(live, dst[eid], n), u[j],
-                 torch.where(live, w[eid], INF), n)
-    return _multpath_relax_runs(F, r, n)
+    return _multpath_relax_runs(
+        F, csr_runs(F.w, indptr, dst, w, n, vcap=vcap, ecap=ecap))
 
 
 def centpath_relax_csr(F: Centpath, indptr_in: torch.Tensor,
@@ -354,9 +350,5 @@ def centpath_relax_csr(F: Centpath, indptr_in: torch.Tensor,
     expands, and the candidates reduce to the predecessor side. Equals
     ``centpath_relax_coo`` under the same capacity proviso.
     """
-    u, offs = _compact_cols(torch.isfinite(F.w), indptr_in, vcap)
-    j, eid, live = _expand_edges(u, offs, indptr_in, ecap)
-    wa = w_in[eid]
-    alive = live & torch.isfinite(wa)  # padding arcs never contribute
-    r = arc_runs(torch.where(alive, src_in[eid], n), u[j], wa, n)
-    return _centpath_relax_runs(F, r, n)
+    return _centpath_relax_runs(
+        F, csr_runs(F.w, indptr_in, src_in, w_in, n, vcap=vcap, ecap=ecap))

@@ -2,7 +2,7 @@
 
 ``csrc/`` holds the CUDA sources, ``_build`` compiles them at first use,
 ``tropical_mm`` / ``centpath_mm`` wrap the two products and ``ops``
-dispatches them by device; ``segment_sum`` wraps and dispatches the
-tie-masked segment sum of the sparse relaxations; ``ref`` holds the plain
+dispatches them by device; ``segment_relax`` wraps and dispatches the
+sparse relax of the COO and CSR backends; ``ref`` holds the plain
 PyTorch versions of all three.
 """

@@ -2,7 +2,8 @@
 
 The two products build the whole ``(nb, n, n2)`` candidate block, so they
 are the oracles that the CUDA kernels are held against, not a path to run
-at scale. The segment sum's is the sparse relaxations' CPU path.
+at scale. The sparse relax's (``*_segment_relax_ref``) is the COO and CSR
+relaxations' CPU path.
 """
 from __future__ import annotations
 
@@ -33,8 +34,8 @@ def centpath_matmul_ref(fw, fp, b):
 
 
 def segment_sum_ref(cand, best, val, seg, *, count=False):
-    """Plain version of the segment-sum kernel: ``index_add_`` of the
-    tie-masked values, which on the CPU adds each segment's terms one at a
+    """The sparse relax's tie sums: ``index_add_`` of the tie-masked
+    values, which on the CPU adds each segment's terms one at a
     time in index order, starting from 0 (``tests/test_torch_sparse.py``
     holds it to that order). cand/val: (nb, L); best: (nb, S); seg: (L,)
     int64 in [0, S], where S (the dump) takes no segment. Returns
@@ -50,3 +51,38 @@ def segment_sum_ref(cand, best, val, seg, *, count=False):
 
     return (total(torch.where(tie, val, 0.0)),
             total(tie.to(val.dtype)) if count else None)
+
+
+def _segment_extreme(cand, seg, n, how):
+    """Per-(row, segment) amin/amax of ``cand`` (nb, L) over ``seg`` (L,):
+    exact in any order. An empty segment keeps the identity (±inf); column
+    n is the dump of the dead slots and is dropped."""
+    init = INF if how == "amin" else -INF
+    out = torch.full((cand.shape[0], n + 1), init, dtype=cand.dtype,
+                     device=cand.device)
+    out.scatter_reduce_(1, seg.expand_as(cand), cand, how, include_self=True)
+    return out[:, :n].contiguous()
+
+
+def multpath_segment_relax_ref(fw, fm, col, seg, w):
+    """Plain version of the MFBF sparse relax: fw/fm (nb, n); the arcs
+    grouped by ``seg`` (L,) in [0, n] (n = dead), reading columns ``col``
+    with weights ``w``. Returns ``(w, m)``, each (nb, n)."""
+    n = fw.shape[1]
+    cand = fw.index_select(1, col) + w  # (nb, L)
+    minw = _segment_extreme(cand, seg, n, "amin")
+    m, _ = segment_sum_ref(cand, minw, fm.index_select(1, col), seg)
+    # an empty segment keeps minw = inf already; entries whose ties sum to
+    # zero multiplicity are inactive too
+    return torch.where(m > 0, minw, INF), m
+
+
+def centpath_segment_relax_ref(fw, fp, col, seg, w):
+    """Plain version of the MFBr sparse relax. Returns ``(w, p, c)``."""
+    n = fw.shape[1]
+    g = fw.index_select(1, col)
+    cand = torch.where(torch.isfinite(g) & torch.isfinite(w), g - w, -INF)
+    maxw = _segment_extreme(cand, seg, n, "amax")
+    p, c = segment_sum_ref(cand, maxw, fp.index_select(1, col), seg,
+                           count=True)
+    return torch.where(c > 0, maxw, -INF), p, c

@@ -48,7 +48,7 @@ _MODULES = {
     "repro_torch.bc.executor", "repro_torch.bc.solve",
     "repro_torch.bc.fusion", "repro_torch.bc.refine",
     # slice 3: the COO and CSR backends and the calibration command
-    "repro_torch.kernels.segment_sum", "repro_torch.launch.calibrate",
+    "repro_torch.kernels.segment_relax", "repro_torch.launch.calibrate",
 }
 
 _BANNED = re.compile(r"^\s*(?:import|from)\s+(?:jax|repro)\b", re.MULTILINE)

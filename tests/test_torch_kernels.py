@@ -7,10 +7,9 @@ empty frontier and tie-heavy inputs: ``w`` and ``c`` bitwise, ``m`` within
 rtol 1e-6, ``p`` within rtol 1e-5.
 
 The tests marked ``cuda`` hold each Hopper kernel against its plain version
-on the card and check that the launch counter moves (the segment sum
-bitwise against its plain version run on the CPU, whose ``index_add_``
-adds in index order); they skip on a host without a card. On the card
-they run with
+on the card and check that the launch counter moves (the sparse-relax
+kernel's are in ``tests/test_torch_segment_relax.py``); they skip on a
+host without a card. On the card they run with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels.py
 """
@@ -20,10 +19,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core.monoids import arc_runs
 from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels.centpath_mm import centpath_matmul_cuda
-from repro_torch.kernels.segment_sum import segment_sum, segment_sum_cuda
 from repro_torch.kernels.tropical_mm import multpath_matmul_cuda
 
 INF = np.inf
@@ -243,66 +240,4 @@ def test_mfbc_on_card_runs_the_kernels(cuda):
     lam = mfbc(g, n_b=16)
     assert multpath_matmul_cuda.launches > before[0]
     assert centpath_matmul_cuda.launches > before[1]
-    np.testing.assert_allclose(lam, brandes_bc(g), rtol=1e-5, atol=1e-8)
-
-
-def _segment_inputs(nb, n, runs, seed):
-    """Segment-sum inputs with the given run lengths (some 0): integer
-    candidates with ties, non-integer values, a dump tail, padding arcs
-    (cand inf) and a row whose best is not finite."""
-    rng = np.random.default_rng(seed)
-    seg = np.concatenate([np.repeat(np.arange(n), runs),
-                          np.full(7, n)]).astype(np.int64)
-    L = seg.size
-    cand = rng.integers(0, 4, (nb, L)).astype(np.float32)
-    cand[:, ::11] = INF
-    val = (rng.random((nb, L)) * 3 + 0.1).astype(np.float32)
-    best = np.full((nb, n), INF, np.float32)
-    np.minimum.at(best.T, seg[seg < n], cand.T[seg < n])
-    best[-1] = INF  # a row with no tie
-    return cand, best, val, seg
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("count", [False, True])
-@pytest.mark.parametrize("case", ["mixed", "long_run"])
-def test_segment_sum_kernel_matches_plain_on_card(case, count, cuda):
-    rng = np.random.default_rng(3)
-    if case == "mixed":  # empty, single-arc and short runs
-        runs = rng.choice([0, 1, 2, 5, 40], size=300)
-        nb = 5
-    else:  # a run as long as R-MAT scale 18's largest degree
-        runs = np.concatenate([[25231], rng.integers(0, 3, 50)])
-        nb = 3
-    cand, best, val, seg = _segment_inputs(nb, len(runs), runs, 1)
-    n = len(runs)
-    seg_t = torch.from_numpy(seg).to(cuda)
-    r = arc_runs(seg_t, seg_t, _t(val[0], cuda), n)
-    args = [_t(x, cuda) for x in (cand, best, val)]
-    before = segment_sum_cuda.launches
-    got = segment_sum(*args, r.seg, r.offsets, count=count)
-    again = segment_sum(*args, r.seg, r.offsets, count=count)
-    torch.cuda.synchronize()
-    assert segment_sum_cuda.launches == before + 2
-    want = ref.segment_sum_ref(*(_t(x) for x in (cand, best, val)),
-                               torch.from_numpy(seg), count=count)
-    for x, y, z in zip(got, again, want):
-        if z is None:
-            assert x is None and y is None
-            continue
-        assert torch.equal(x, y)
-        assert torch.equal(x.cpu(), z)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("backend", ["coo", "csr"])
-def test_sparse_mfbc_on_card_runs_the_segment_sum(backend, cuda):
-    from repro_torch.core.brandes_ref import brandes_bc
-    from repro_torch.core.mfbc import mfbc
-    from repro_torch.graphs.generators import rmat
-
-    g = rmat(7, 8, seed=3, weighted=True, max_weight=6).remove_isolated()[0]
-    before = segment_sum_cuda.launches
-    lam = mfbc(g, n_b=16, backend=backend)
-    assert segment_sum_cuda.launches > before
     np.testing.assert_allclose(lam, brandes_bc(g), rtol=1e-5, atol=1e-8)

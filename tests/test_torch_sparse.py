@@ -5,8 +5,8 @@ generators, the reference containers' own arc arrays (carried across with
 ``coo_adj_from_arrays`` / ``csr_adj_from_arrays``), and frontiers made
 with numpy.
 
-* CPU ``index_add_``, the plain version of the segment-sum kernel, adds in
-  index order, as ``jax.ops.segment_sum`` does on the CPU: so the COO and
+* CPU ``index_add_``, the tie sums of the sparse relax's plain version,
+  adds in index order, as ``jax.ops.segment_sum`` does on the CPU: so the COO and
   CSR relaxes give ``w``, ``m``, ``p``, ``c`` and the child counts bitwise
   equal to the reference's, with non-integer ``m`` and ``p`` whose sums
   would change in the last bits in another order.
@@ -43,7 +43,7 @@ from repro_torch.core.mfbc import mfbc_batch_moments, mfbc_batch_moments_traced
 from repro_torch.core.mfbf import TRACE_CAP, mfbf
 from repro_torch.core.mfbr import mfbr
 from repro_torch.graphs.generators import rmat
-from repro_torch.kernels.segment_sum import segment_sum, segment_sum_cuda
+from repro_torch.kernels.ref import segment_sum_ref
 from repro_torch.launch import bc_run, calibrate
 from repro_torch.spgemm import cost_model as tcost
 
@@ -154,8 +154,9 @@ def test_cpu_index_add_is_the_ordered_sum():
 
 @pytest.mark.parametrize("count", [False, True])
 def test_segment_sum_plain_version(count):
-    """``segment_sum`` on CPU tensors: ties of finite ``best`` summed in
-    arc order, empty and non-finite segments 0, dump arcs ignored."""
+    """``segment_sum_ref``, the plain relax's tie sums: ties of finite
+    ``best`` summed in arc order, empty and non-finite segments 0, dump
+    arcs ignored."""
     rng = np.random.default_rng(1)
     n, nb = 9, 4
     seg = np.sort(rng.integers(0, n + 1, 120))  # n = the dump segment
@@ -167,8 +168,8 @@ def test_segment_sum_plain_version(count):
     best[2, :3] = -INF
     runs = tmono.arc_runs(_t(seg), _t(np.arange(120)), _t(val[0]), n)
     _eq(runs.seg, seg)
-    out, cnt = segment_sum(_t(cand), _t(best), _t(val), _t(seg),
-                           runs.offsets, count=count)
+    out, cnt = segment_sum_ref(_t(cand), _t(best), _t(val), runs.seg,
+                               count=count)
     want = np.zeros((nb, n), np.float32)
     want_c = np.zeros((nb, n), np.float32)
     for s in range(nb):
@@ -183,20 +184,6 @@ def test_segment_sum_plain_version(count):
     else:
         assert cnt is None
     assert not out[1].any() and not out[2, :3].any()
-
-
-def test_segment_sum_wrapper_refuses_cpu_tensors():
-    """No quiet fallback: the kernel wrapper takes CUDA tensors only, and
-    the dispatch has no path for another device."""
-    x = torch.zeros(2, 5)
-    off = torch.zeros(4, dtype=torch.int64)
-    before = segment_sum_cuda.launches
-    with pytest.raises(ValueError, match="CUDA tensors only"):
-        segment_sum_cuda(x, torch.zeros(2, 3), x, off)
-    meta = torch.zeros(2, 5, device="meta")
-    with pytest.raises(ValueError, match="no path for device meta"):
-        segment_sum(meta, meta, meta, off, off)
-    assert segment_sum_cuda.launches == before
 
 
 # ------------------------------------------------------- relaxations

@@ -19,7 +19,8 @@ the query's first sample batch ``--batches`` times through ``step``:
 * with ``--trace``, ``torch.profiler`` over one more batch: the device's
   busy share (kernel time over the batch's wall time) and the kernels
   with the most device time. Where the profiler records no device time it
-  prints "not measured".
+  prints "not measured". The sparse-relax kernel's share is summed over
+  its prep and relax launches.
 """
 from __future__ import annotations
 
@@ -115,6 +116,13 @@ def profile_batch(ex, src, valid) -> None:
     for e in sorted(kernels, key=dev_us, reverse=True)[:12]:
         print(f"[profile]   {dev_us(e) / 1e3:10.3f} ms {e.count:6d}x  "
               f"{e.key[:100]}")
+    # the sparse-relax kernel's two launches per call (its prep pass and
+    # the relax) carry the source's name in their mangled symbols
+    relax = [e for e in kernels if "segment_relax" in e.key]
+    relax_us = sum(dev_us(e) for e in relax)
+    print(f"[profile] segment_relax (prep + relax): {relax_us / 1e3:.3f} ms "
+          f"in {sum(e.count for e in relax)} launches, "
+          f"{100 * relax_us / total_us:.1f} % of the kernel time")
 
 
 def main(argv=None) -> None:
