@@ -78,9 +78,31 @@ order; any failed check raises and the script exits non-zero:
    e. ``launch.calibrate`` at scale 14 into a temporary file under
       ``build/``, its rates, and the plan it gives phase 6d's query.
 
+7. the metric registry, through ``solve`` and the executor:
+   a. scale 12: closeness, khop (hops 2 and 3) and components, exact,
+      pinned to dense, COO and CSR and unpinned: khop and components
+      bitwise equal to their oracles, closeness within rtol 1e-5, atol
+      1e-5, with the seconds of each. The all-sources oracles come from
+      scipy (``farness``, ``khop_counts``), which are held first to the
+      repo's ``closeness_ref`` / ``khop_ref`` over 8 sources; components
+      against ``cc_ref``;
+   b. cross-metric fusion: one ``step_segmented`` with a betweenness and a
+      closeness slot on dense at n_b 64 and on CSR at n_b 16, and two khop
+      slots, each slot bitwise equal to its rows alone; a khop + closeness
+      batch raises;
+   c. scale 18: unpinned approximate closeness and khop (hops 2) of
+      ε = 0.05, δ = 0.1, top-10 (``max_samples`` capped as in 6d), the
+      first sample batch's S1 and n_reach against scipy over its sources;
+      unpinned exact components bitwise equal to ``cc_ref``;
+   d. the BFS baseline on an unweighted scale-12 R-MAT, dense and COO at
+      n_b 64 with ``max_depth`` the largest BFS depth scipy finds: against
+      the port's dense ``mfbc`` (rtol 1e-5, atol 1e-8), and its first
+      batch against ``brandes_bc`` over sources 0..63.
+
 Each main-path run (phases 3, 4, 5a, 5b on the dense kernels, 6c and 6d
-on the sparse relax) starts with the launch counts at 0 and fails if a
-kernel of its path did not launch in it. The line before the last is one
+on the sparse relax, and every run of 7a, 7c and 7d on its backend's
+kernels) starts with the launch counts at 0 and fails if a kernel of its
+path did not launch in it. The line before the last is one
 JSON object with each kernel's launches (summed over those runs), error,
 times and bound; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -111,11 +133,14 @@ from repro_torch.bc import (BatchAssembler, BCPlanner,  # noqa: E402
 from repro_torch.core import monoids  # noqa: E402
 from repro_torch.core.adjacency import (DenseAdj,  # noqa: E402
                                         dense_adj_from_graph)
-from repro_torch.core.brandes_ref import brandes_bc  # noqa: E402
+from repro_torch.core.bfs_bc import bfs_bc, bfs_bc_batch  # noqa: E402
+from repro_torch.core.brandes_ref import (brandes_bc, cc_ref,  # noqa: E402
+                                          closeness_ref, khop_ref)
 from repro_torch.core.mfbc import (mfbc, mfbc_batch,  # noqa: E402
                                    mfbc_batch_moments,
                                    mfbc_batch_moments_segmented,
                                    segment_fold)
+from repro_torch.core.metrics import components_graph  # noqa: E402
 from repro_torch.core.mfbf import mfbf  # noqa: E402
 from repro_torch.graphs.generators import rmat  # noqa: E402
 from repro_torch.kernels import _build, ref  # noqa: E402
@@ -826,6 +851,273 @@ def phase6e(g, scale: int) -> None:
         f"n_b={pl_cal.n_b} predicted {pl_cal.predicted_seconds:.3f}s")
 
 
+# -- phase 7: the metric registry --------------------------------------------
+
+# The kernels a metric run must launch, by backend: forward-only metrics
+# relax with the multpath product alone on dense.
+METRIC_PATH = {"dense": ("multpath_mm",), "coo": SPARSE_PATH,
+               "csr": SPARSE_PATH}
+# phase 7a's queries: (label, metric, hops)
+METRIC_CASES = (("closeness", "closeness", 0), ("khop2", "khop", 2),
+                ("khop3", "khop", 3), ("components", "components", 0))
+
+
+def csgraph(g, weighted: bool = True):
+    from scipy.sparse import csr_matrix
+
+    w = g.w.astype(np.float64) if weighted else np.ones(g.nnz)
+    return csr_matrix((w, (g.src, g.dst)), shape=(g.n, g.n))
+
+
+def farness(g, sources) -> np.ndarray:
+    """``closeness_ref`` over ``sources`` by scipy's Dijkstra: Σ_s τ(s, v)
+    over finite distances, s ≠ v."""
+    from scipy.sparse.csgraph import dijkstra
+
+    d = dijkstra(csgraph(g), indices=sources)
+    d[np.arange(len(sources)), sources] = INF
+    return np.where(np.isfinite(d), d, 0.0).sum(axis=0)
+
+
+def khop_counts(g, sources, hops: int) -> np.ndarray:
+    """``khop_ref`` over ``sources`` by scipy's BFS: |{s : v within
+    ``hops`` edges of s, v ≠ s}|."""
+    from scipy.sparse.csgraph import shortest_path
+
+    d = shortest_path(csgraph(g, weighted=False), unweighted=True,
+                      indices=sources)
+    d[np.arange(len(sources)), sources] = INF
+    return (d <= hops).sum(axis=0).astype(np.float64)
+
+
+def metric_query(metric: str, hops: int, backend=None, **kw) -> BCQuery:
+    return BCQuery(metric=metric, hops=hops, execution=ExecutionConfig(
+        backend=backend, placement="single_host" if backend else None),
+        **kw)
+
+
+def metric_solve(g, q, launches, label: str):
+    """One ``solve`` of a metric query as a main-path run: the counts at 0
+    before, the backend's kernels launched after. Returns (result, wall
+    seconds, launches of this run)."""
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = solve(g, q, device=DEV)
+    wall = time.perf_counter() - t0
+    return res, wall, tally(launches, METRIC_PATH[res.plan.backend], label)
+
+
+def phase7a(g, launches) -> None:
+    """Scale 12: every metric, exact, on each backend pinned and unpinned,
+    against the oracles."""
+    all_src = np.arange(g.n)
+    t0 = time.perf_counter()
+    few = all_src[:8]
+    np.testing.assert_array_equal(farness(g, few),
+                                  closeness_ref(g, sources=few))
+    for hops in (2, 3):
+        np.testing.assert_array_equal(khop_counts(g, few, hops),
+                                      khop_ref(g, sources=few, hops=hops))
+    oracles = {"closeness": farness(g, all_src),
+               "khop2": khop_counts(g, all_src, 2),
+               "khop3": khop_counts(g, all_src, 3), "components": cc_ref(g)}
+    log(f"7a: oracles in {time.perf_counter() - t0:.1f}s (CPU): scipy "
+        "farness and hop counts over all sources, equal to closeness_ref / "
+        "khop_ref over sources 0..7; cc_ref (union-find) "
+        f"{len(np.unique(oracles['components']))} component(s)")
+    for backend in ("dense", "coo", "csr", None):
+        for label, metric, hops in METRIC_CASES:
+            where = f"7a: {label} {backend or 'unpinned'}"
+            res, wall, phase = metric_solve(
+                g, metric_query(metric, hops, backend), launches, where)
+            want = oracles[label]
+            if metric == "closeness":
+                np.testing.assert_allclose(res.lam, want, rtol=1e-5,
+                                           atol=1e-5, err_msg=where)
+                check = ("within rtol 1e-5, atol 1e-5 (max |d| "
+                         f"{float(np.abs(res.lam - want).max()):.3g})")
+            else:
+                np.testing.assert_array_equal(res.lam, want, err_msg=where)
+                check = "bitwise"
+            if res.plan.occupancy is not None:  # metrics run untraced
+                raise AssertionError(f"{where}: the plan carries occupancy")
+            log(f"{where}: {res.plan.summary()}; {wall:.3f}s "
+                f"({res.seconds:.3f}s in solve's driver), launches {phase}; "
+                f"== oracle {check}")
+
+
+def metric_fused_check(ex, g, slots, hops: int, label: str) -> None:
+    """Phase 7b: one fused batch of ``slots`` ((metric, rows) pairs); each
+    slot bitwise equal to its rows alone under its own metric."""
+    rng = np.random.default_rng(len(slots) + hops)
+    demand = [(j, rng.integers(0, g.n, k).astype(np.int32))
+              for j, (_, k) in enumerate(slots)]
+    (fb,) = BatchAssembler(ex).assemble(demand)
+    metrics = tuple(slots[key][0] for key in fb.slots)
+    fused = ex.step_segmented(fb.sources, fb.valid, fb.slot_ids, fb.n_slots,
+                              metrics=metrics, hops=hops)
+    for j, key in enumerate(fb.slots):
+        rows = demand[key][1]
+        alone = ex.step_segmented(rows, np.ones(rows.size, bool),
+                                  np.zeros(rows.size, np.int32), 1,
+                                  metrics=(metrics[j],), hops=hops)
+        for what, x, y in zip(("S1", "S2", "n_reach"), fused, alone):
+            np.testing.assert_array_equal(
+                x[j], y[0], err_msg=f"{label}: slot {j} {what}")
+    log(f"{label}: fused {fb.sources.size} rows {metrics} at bucket "
+        f"{ex.bucket_for(fb.sources.size)} == each slot alone, bitwise in "
+        "S1, S2, n_reach")
+
+
+def phase7b(g) -> None:
+    """Cross-metric fusion on dense at n_b 64 and CSR at n_b 16."""
+    for backend, n_b, lens in (("dense", 64, (20, 39)), ("csr", 16, (5, 9))):
+        ex = build_executor(g, plan(g, BCQuery(
+            mode="approx", n_b=n_b, execution=ExecutionConfig(
+                backend=backend, placement="single_host")), device=DEV),
+            device=DEV)
+        where = f"7b: {backend} n_b={n_b}"
+        metric_fused_check(ex, g, (("betweenness", lens[0]),
+                                   ("closeness", lens[1])), 0, where)
+        metric_fused_check(ex, g, (("khop", lens[0]), ("khop", lens[1])), 2,
+                           where)
+        src = np.arange(lens[0], dtype=np.int32)
+        try:
+            ex.step_segmented(src, np.ones(src.size, bool),
+                              (src % 2).astype(np.int32), 2,
+                              metrics=("khop", "closeness"), hops=2)
+        except ValueError as e:
+            log(f"{where}: a khop + closeness batch raises: {e}")
+        else:
+            raise AssertionError(f"{where}: khop + closeness did not raise")
+        del ex
+        torch.cuda.empty_cache()
+
+
+def first_metric_batch(g, q, metric: str, hops: int):
+    """Phase 7c: the first sample batch of ``q``'s stream through the
+    planned executor, against scipy over its sources; returns (the seconds
+    of one ``step`` of it, the plan)."""
+    pl = plan(g, q, device=DEV)
+    ex = build_executor(g, pl, device=DEV)
+    sampler = AdaptiveSampler(g.n, eps=q.eps, delta=q.delta, n_b=ex.n_b,
+                              seed=q.seed)
+    _, tau0 = sampler.next_epoch()
+    src = sampler.draw(min(tau0, ex.n_b)).astype(np.int32)
+    valid = np.ones(src.size, bool)
+    s1, s2, nr = ex.step(src, valid, metric=metric, hops=hops)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ex.step(src, valid, metric=metric, hops=hops)
+    t_batch = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if metric == "closeness":
+        want = farness(g, src)
+        np.testing.assert_allclose(s1, want, rtol=1e-5,
+                                   err_msg="7c: closeness first batch S1")
+        reach, check = khop_counts(g, src, g.n), "rtol 1e-5"  # all finite
+    else:
+        want = khop_counts(g, src, hops)
+        np.testing.assert_array_equal(s1, want,
+                                      err_msg="7c: khop first batch S1")
+        reach, check = want, "bitwise"
+    np.testing.assert_array_equal(nr, reach,
+                                  err_msg=f"7c: {metric} first batch n_reach")
+    if not (np.all(np.isfinite(s1)) and np.all(np.isfinite(s2))):
+        raise AssertionError(f"7c: {metric} first batch S1/S2 not finite")
+    log(f"7c: {metric} first batch ({src.size} sources) on {pl.summary()}: "
+        f"S1 == scipy over its sources ({check}; max |d| "
+        f"{float(np.abs(s1 - want).max()):.3g}), n_reach bitwise, "
+        f"max S2 {float(s2.max()):.4g}; oracle {time.perf_counter() - t0:.1f}s"
+        f" (CPU); one step {t_batch:.3f}s")
+    del ex
+    torch.cuda.empty_cache()
+    return t_batch, pl
+
+
+def phase7c(g, launches) -> None:
+    """Scale 18: approximate closeness and khop (hops 2), and exact
+    components, all unpinned."""
+    for metric, hops in (("closeness", 0), ("khop", 2)):
+        q = metric_query(metric, hops, mode="approx", eps=0.05, delta=0.1,
+                         topk=10)
+        t_batch, pl = first_metric_batch(g, q, metric, hops)
+        est = -(-pl.sample_budget // pl.n_b) * t_batch
+        if est > EPOCH_LIMIT_S:
+            cap = max(pl.n_b, int(EPOCH_LIMIT_S / t_batch) * pl.n_b)
+            log(f"7c: {metric}: the budget's batches ≈ {est:.0f}s > "
+                f"{EPOCH_LIMIT_S}s: max_samples capped at {cap} (budget "
+                f"{pl.sample_budget})")
+            q = dataclasses.replace(q, max_samples=cap)
+        torch.cuda.reset_peak_memory_stats()
+        res, wall, phase = metric_solve(g, q, launches, f"7c: {metric}")
+        a = res.approx
+        peak = torch.cuda.max_memory_allocated()
+        if a.lam.shape != (g.n,) or not (np.all(np.isfinite(a.lam)) and
+                                         np.all(np.isfinite(a.halfwidth))):
+            raise AssertionError(f"7c: {metric}: λ̂ or its CI not finite")
+        log(f"7c: {metric}: {res.plan.summary()}: {a.n_samples} samples, "
+            f"{a.n_epochs} epochs, converged={a.converged}, "
+            f"{res.seconds:.3f}s in the epochs ({wall:.3f}s with planning "
+            f"and upload), launches {phase}, peak device memory "
+            f"{peak / 2**30:.2f} GiB; top-10 {a.topk(10).tolist()}")
+    torch.cuda.reset_peak_memory_stats()
+    res, wall, phase = metric_solve(g, metric_query("components", 0),
+                                    launches, "7c: components")
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    want = cc_ref(g)
+    t_ref = time.perf_counter() - t0
+    np.testing.assert_array_equal(res.lam, want, err_msg="7c: components")
+    t0 = time.perf_counter()
+    components_graph(g)
+    t_graph = time.perf_counter() - t0
+    relaxes = max(phase.values())
+    log(f"7c: components: {res.plan.summary()}: {wall:.3f}s "
+        f"({res.seconds:.3f}s in labels(), of which about {t_graph:.3f}s "
+        f"builds the zero-weight graph on the host), {relaxes} relaxes "
+        f"(iterations), launches {phase}, peak device memory "
+        f"{peak / 2**30:.2f} GiB; {len(np.unique(want))} component(s), "
+        f"bitwise equal to cc_ref ({t_ref:.1f}s on the host)")
+
+
+def phase7d(launches) -> None:
+    """The BFS baseline on an unweighted scale-12 R-MAT, dense and COO."""
+    from scipy.sparse.csgraph import shortest_path
+
+    g, _ = rmat(12, 16, seed=0, weighted=False).remove_isolated()
+    hops = shortest_path(csgraph(g, weighted=False), unweighted=True)
+    depth = int(hops[np.isfinite(hops)].max())
+    del hops
+    lam_mfbc = mfbc(g, n_b=64, device=DEV)
+    out = {}
+    for backend, path in (("dense", DENSE_PATH), ("coo", SPARSE_PATH)):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[backend] = bfs_bc(g, n_b=64, backend=backend, max_depth=depth,
+                              device=DEV)
+        dt = time.perf_counter() - t0
+        phase = tally(launches, path, f"7d: bfs_bc {backend}")
+        np.testing.assert_allclose(out[backend], lam_mfbc, rtol=1e-5,
+                                   atol=1e-8, err_msg=f"7d: {backend}")
+        log(f"7d: bfs_bc unweighted rmat scale 12 (n={g.n}, m={g.m}) on "
+            f"{backend}, n_b=64, max_depth={depth} (scipy's largest BFS "
+            f"depth): {dt:.3f}s, launches {phase}; == mfbc (rtol 1e-5, atol "
+            "1e-8)")
+    src = torch.arange(64, device=DEV)
+    first = bfs_bc_batch(dense_adj_from_graph(g, device=DEV), src,
+                         torch.ones(64, dtype=torch.bool, device=DEV),
+                         max_depth=depth).cpu().numpy().astype(np.float64)
+    t0 = time.perf_counter()
+    want = brandes_bc(g, sources=np.arange(64))
+    log(f"oracle: 64 sources in {time.perf_counter() - t0:.1f}s (CPU)")
+    np.testing.assert_allclose(first, want, rtol=1e-5, atol=1e-8)
+    log("7d: bfs_bc_batch over sources 0..63 matches brandes_bc (rtol 1e-5, "
+        "atol 1e-8)")
+
+
 def graph(scale: int):
     g, _ = rmat(scale, 16, seed=0, weighted=True, max_weight=100
                 ).remove_isolated()
@@ -833,6 +1125,7 @@ def graph(scale: int):
 
 
 def main() -> None:
+    t_start = time.perf_counter()
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -1040,6 +1333,15 @@ def main() -> None:
     phase6c(g12, lam, launches)
     g18, relax_times = phase6d(launches, 18)
     phase6e(g18, 14)
+
+    # 7. the metric registry
+    t7 = time.perf_counter()
+    phase7a(g12, launches)
+    phase7b(g12)
+    phase7c(g18, launches)
+    phase7d(launches)
+    log(f"phase 7 in {time.perf_counter() - t7:.1f}s; the script in "
+        f"{time.perf_counter() - t_start:.1f}s")
 
     rows = [{"name": name, "route": "cuda", "source": k["source"],
              "replaces": k["replaces"], "launches": launches[name],

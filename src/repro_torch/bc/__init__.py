@@ -24,8 +24,9 @@ Typical use::
 The serving stack's fusion surface lives here too: ``plan_for_request``,
 ``BatchAssembler`` / ``FusedBatch`` / ``scatter`` and ``honest_converged``,
 and the refinement surface: ``ApproxCheckpoint``, ``checkpoint_from``,
-``resume_approx`` and ``carry_checkpoint``. Not ported yet: metrics other
-than betweenness (slice 4 of ROADMAP.md), ``MeshExecutor`` (slice 6).
+``resume_approx`` and ``carry_checkpoint``. Every registered metric runs
+(``BCQuery(metric=...)``: betweenness, closeness, khop, components). Not
+ported yet: ``MeshExecutor`` (slice 6 of ROADMAP.md).
 """
 from repro_torch.approx.driver import (ApproxResult, LambdaEstimator,
                                        choose_sample_batch, stopping_check)

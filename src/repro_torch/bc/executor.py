@@ -20,12 +20,15 @@ folds each slot's rows in row order (``core.mfbc.segment_fold``), so a
 slot's statistics are bitwise the same in any bucket.
 
 What is ported: the ``BackendSpec`` registry with DENSE, COO and CSR
-registered, and ``SingleHostExecutor`` for betweenness, with the CSR
-occupancy side channel (``occupancy_summary``). Another metric raises
-``NotImplementedError`` naming slice 4 of ROADMAP.md, a mesh plan slice 6.
-On the CSR backend, as on COO, a slot's fused statistics stay bitwise
-those of its rows alone because the segment sums add each segment in arc
-order, whatever the batch's union frontier makes the bucket pick choose.
+registered, and ``SingleHostExecutor`` for every registered metric: the
+sampled metrics through ``step``/``step_sum``/``step_segmented`` (a fused
+batch may mix metrics row-wise, ``metrics=``), the components fixed point
+through ``labels()``, and the CSR occupancy side channel
+(``occupancy_summary``) on the betweenness path. A mesh plan raises
+``NotImplementedError`` naming slice 6 of ROADMAP.md. On the CSR backend,
+as on COO, a slot's fused statistics stay bitwise those of its rows alone
+because the segment sums add each segment in arc order, whatever the
+batch's union frontier makes the bucket pick choose.
 """
 from __future__ import annotations
 
@@ -42,18 +45,15 @@ from repro_torch.bc.planner import _MESH_MSG, BCPlan, bucket_sizes
 from repro_torch.core.adjacency import (CsrAdj, coo_adj_from_graph,
                                         csr_adj_from_graph,
                                         dense_adj_from_graph)
-from repro_torch.core.mfbc import (mfbc_batch, mfbc_batch_moments,
+from repro_torch.core.mfbc import (metric_batch_moments,
+                                   metric_batch_moments_segmented,
+                                   mfbc_batch, mfbc_batch_moments,
                                    mfbc_batch_moments_segmented,
                                    mfbc_batch_moments_traced)
+from repro_torch.core.metrics import components_graph, components_labels
 from repro_torch.graphs.formats import Graph
 
 Moments = Tuple[np.ndarray, np.ndarray, np.ndarray]  # (S1, S2, n_reach)
-
-
-def _metric_error(what) -> NotImplementedError:
-    return NotImplementedError(
-        f"metric {what!r} is not ported yet: the sweeps of metrics other "
-        "than betweenness are slice 4 of ROADMAP.md")
 
 
 # --- backend registry ------------------------------------------------------
@@ -229,26 +229,40 @@ class _ExecutorBase:
 
     def step(self, sources: np.ndarray, valid: np.ndarray, *,
              metric: str = "betweenness", hops: int = 0) -> Moments:
-        if metric != "betweenness":
-            raise _metric_error(metric)
-        return self._moments(*_pad_batch(sources, valid, self.n_b))
+        src, val = _pad_batch(sources, valid, self.n_b)
+        if metric == "betweenness":
+            return self._moments(src, val)  # the default path, with its trace
+        return self._metric_moments(src, val, metric, hops)
 
     def step_sum(self, sources: np.ndarray, valid: np.ndarray, *,
                  metric: str = "betweenness", hops: int = 0) -> np.ndarray:
-        if metric != "betweenness":
-            raise _metric_error(metric)
-        return self._sum(*_pad_batch(sources, valid, self.n_b))
+        src, val = _pad_batch(sources, valid, self.n_b)
+        if metric == "betweenness":
+            return self._sum(src, val)
+        return self._metric_moments(src, val, metric, hops)[0]
 
     def step_segmented(self, sources: np.ndarray, valid: np.ndarray,
                        slot_ids: np.ndarray, n_slots: int, *,
                        metrics=None, hops: int = 0) -> Moments:
-        if metrics is not None and any(m != "betweenness" for m in metrics):
-            raise _metric_error(tuple(metrics))
         bucket = self.bucket_for(np.asarray(sources).shape[0])
         n_seg = _slot_bucket(n_slots)
         src, val, sid = _pad_segmented(sources, valid, slot_ids, bucket,
                                        n_seg)
-        s1, s2, nr = self._segmented(src, val, sid, n_seg)
+        if metrics is None or all(m == "betweenness" for m in metrics):
+            s1, s2, nr = self._segmented(src, val, sid, n_seg)
+            return s1[:n_slots], s2[:n_slots], nr[:n_slots]
+        if len(metrics) != n_slots:
+            raise ValueError(f"metrics names {len(metrics)} slots, "
+                             f"batch has {n_slots}")
+        # kinds in first-appearance order and a kind tag per row; padding
+        # rows tag kind 0 — they are valid=False and land in the dump
+        # segment regardless.
+        kinds = tuple(dict.fromkeys(metrics))
+        slot_kind = np.array([kinds.index(m) for m in metrics]
+                             + [0], np.int32)  # [-1] = the dump segment
+        mids = slot_kind[np.minimum(sid, len(metrics))]
+        s1, s2, nr = self._metric_segmented(src, val, sid, mids, kinds,
+                                            n_seg, hops)
         return s1[:n_slots], s2[:n_slots], nr[:n_slots]
 
     # -- compute hooks (padded inputs, full padded outputs) -------------
@@ -260,6 +274,19 @@ class _ExecutorBase:
 
     def _segmented(self, src, val, sid, n_seg: int) -> Moments:
         raise NotImplementedError
+
+    def _metric_moments(self, src, val, metric: str, hops: int) -> Moments:
+        raise NotImplementedError
+
+    def _metric_segmented(self, src, val, sid, mids, kinds, n_seg: int,
+                          hops: int) -> Moments:
+        raise NotImplementedError
+
+    def labels(self) -> np.ndarray:
+        """The components fixed point: (n,) float64 labels."""
+        raise NotImplementedError(
+            f"{type(self).__name__} has no fixed-point metric entry "
+            f"(components runs single-host)")
 
 
 def _host(s1, s2, nr) -> Moments:
@@ -274,24 +301,26 @@ class SingleHostExecutor(_ExecutorBase):
     ``device``: "cuda" (default; raises without a card) runs the Hopper
     kernels, "cpu" their plain versions. The adjacency is built once, on
     that device, from the plan's backend via the registry. A ``CsrAdj``
-    adjacency routes ``step`` and ``step_sum`` through the traced moments
-    entry point and accumulates the frontier occupancy side channel
-    (``occupancy_summary``).
+    adjacency routes betweenness ``step`` and ``step_sum`` through the
+    traced moments entry point and accumulates the frontier occupancy side
+    channel (``occupancy_summary``); other metrics run untraced, as in the
+    reference. ``labels()`` builds a second adjacency, of the zero-weight
+    symmetrized graph, on its first call.
     """
 
     def __init__(self, g: Graph, plan: BCPlan, *, device="cuda"):
-        if plan.metric != "betweenness":
-            raise _metric_error(plan.metric)
         spec = backend_spec(plan.backend)
         self.device = resolve_device(device)
         self.plan = plan
         self.n_b = plan.n_b
         self.buckets = plan.buckets or bucket_sizes(plan.n_b)
+        self._g = g
         self._adj = spec.make_adjacency(g, plan, self.device)
         # The occupancy trace is collected for the compacting adjacency
         # only; dense and COO moments run the untraced path.
         self._trace = isinstance(self._adj, CsrAdj)
         self._occ: Dict[str, Any] = {}
+        self._cc_adj = None  # the components structure, built by labels()
 
     def _put(self, x: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(x).to(self.device)
@@ -349,13 +378,33 @@ class SingleHostExecutor(_ExecutorBase):
         return _host(*mfbc_batch_moments_segmented(
             self._adj, self._put(src), self._put(val), sid, n_slots=n_seg))
 
+    def _metric_moments(self, src, val, metric: str, hops: int) -> Moments:
+        mids = torch.zeros(src.shape[0], dtype=torch.int32,
+                           device=self.device)
+        return _host(*metric_batch_moments(
+            self._adj, self._put(src), self._put(val), mids,
+            kinds=(metric,), hops=int(hops)))
+
+    def _metric_segmented(self, src, val, sid, mids, kinds, n_seg: int,
+                          hops: int) -> Moments:
+        return _host(*metric_batch_moments_segmented(
+            self._adj, self._put(src), self._put(val), sid, self._put(mids),
+            kinds=kinds, n_slots=n_seg, hops=int(hops)))
+
+    def labels(self) -> np.ndarray:
+        if self._cc_adj is None:
+            self._cc_adj = backend_spec(self.plan.backend).make_adjacency(
+                components_graph(self._g), self.plan, self.device)
+        return components_labels(self._cc_adj).cpu().numpy().astype(
+            np.float64)
+
 
 def build_executor(g: Graph, plan: BCPlan, *, mesh=None,
                    device="cuda") -> BatchExecutor:
     """Instantiate the executor a ``BCPlan`` calls for, on ``device``.
 
-    A mesh plan (or an explicit ``mesh``) or another metric raises
-    ``NotImplementedError`` naming its slice of ROADMAP.md.
+    A mesh plan (or an explicit ``mesh``) raises ``NotImplementedError``
+    naming slice 6 of ROADMAP.md.
     """
     spec = backend_spec(plan.backend)
     if plan.placement == "mesh" or mesh is not None:

@@ -6,7 +6,9 @@ drivers over the shared ``step(sources, valid) -> (S1, S2, n_reach)``
 protocol:
 
 * **exact** — sweep all sources (or an explicit ``sources`` subset) in
-  ``⌈budget/n_b⌉`` padded batches; λ is the running Σ S1.
+  ``⌈budget/n_b⌉`` padded batches; λ is the running Σ S1. A fixed-point
+  metric (components) answers from ``executor.labels()`` instead, with no
+  source sweep.
 * **approx** — adaptive or uniform sampling epochs: fold batch moments
   into a ``LambdaEstimator``, test the Bernstein/CLT stopping rule at
   epoch boundaries with a geometrically split failure budget, stop early
@@ -31,6 +33,7 @@ from repro_torch.approx.driver import (ApproxResult, LambdaEstimator,
 from repro_torch.bc.executor import BatchExecutor, build_executor
 from repro_torch.bc.planner import BCPlan, BCPlanner
 from repro_torch.bc.query import BCQuery
+from repro_torch.core.metrics import metric_spec
 from repro_torch.graphs.formats import Graph
 
 _DEFAULT_PLANNER = BCPlanner()
@@ -122,6 +125,10 @@ def solve(g: Graph, query: Optional[BCQuery] = None, *, mesh=None,
     if executor is None:
         executor = build_executor(g, plan, mesh=mesh, device=device)
     t0 = time.time()
+    if metric_spec(query.metric).fixed_point:
+        # components: one whole-graph label fixed point, no source sweep
+        return BCResult(lam=executor.labels(), plan=plan, query=query,
+                        seconds=time.time() - t0, n_swept=g.n)
     if query.mode == "exact":
         lam, n_swept = _run_exact(g, query, executor, sources, progress_cb)
         return BCResult(lam=lam, plan=_with_occupancy(plan, executor),

@@ -1,11 +1,12 @@
 """Metric registry — the sweep structure of every supported graph metric.
 
-The registry half of ``repro/core/metrics.py``, copied: ``MetricSpec`` and
-its registrations are the single source of truth for ``BCQuery``
-validation, planner pricing, executor dispatch and fusion grouping. The
-port runs betweenness only so far; closeness, k-hop and components (the
-batch bodies and ``components_graph`` / ``components_labels``) are slice 4
-of ROADMAP.md, and the executor raises ``NotImplementedError`` for them.
+A port of ``repro/core/metrics.py``. ``MetricSpec`` and its registrations
+are the single source of truth for ``BCQuery`` validation, planner
+pricing, executor dispatch and fusion grouping. Every metric is a monoid
+sweep over the same relax (``adj.relax_mp`` on the dense, COO and CSR
+backends alike): the sampled metrics' batch bodies are in
+``repro_torch.core.mfbc`` (``metric_batch_moments*``), and the components
+fixed point is here (``components_graph``, ``components_labels``).
 
 Per-source contribution semantics (all share MFBF's maximal-frontier
 forward sweep and the ``t = s`` self-mask):
@@ -22,6 +23,14 @@ from __future__ import annotations
 
 import dataclasses
 from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.adjacency import DenseAdj
+from repro_torch.core.mfbf import read_counts
+from repro_torch.core.monoids import INF, Multpath, multpath_combine
+from repro_torch.graphs.formats import Graph
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,3 +115,56 @@ register_metric(MetricSpec(
                 "over the zero-weight symmetrized structure"))
 
 METRICS = registered_metrics()
+
+
+# ------------------------------------------------------------ components
+def components_graph(g: Graph) -> Graph:
+    """The zero-weight symmetrized pseudo-graph the label sweep runs on.
+
+    Weak connectivity ignores direction and weight: symmetrize the arc
+    structure (``Graph.symmetrize`` dedups and drops loops), then zero the
+    weights so relaxation propagates labels unchanged (label + 0 = label).
+    Every backend's adjacency builder accepts the result: ``coo_to_dense``
+    keeps a zero-weight arc apart from the ``inf`` off-structure, and
+    padding arcs stay ``inf``-weighted self loops.
+    """
+    sym = g.symmetrize()
+    return Graph(sym.n, sym.src, sym.dst,
+                 np.zeros(sym.nnz, dtype=np.float32),
+                 directed=False, name=f"{g.name}+cc")
+
+
+def components_labels(adj) -> torch.Tensor:
+    """Min-label fixed point: (n,) float32 labels, one per weak component.
+
+    One (1, n) Multpath row holds the current labels (initially each
+    vertex's own id). Each relax computes, per vertex, the minimum label
+    over in-neighbours on the zero-weight structure; the frontier keeps
+    only improved entries, and the loop stops when nothing improves (or
+    after n relaxes, as the reference caps it). Labels are integer-valued
+    float32 (exact to 2²⁴), so the fixed point is bitwise the min vertex id
+    of each component, what a host union-find gives
+    (``brandes_ref.cc_ref``).
+
+    One device-to-host read per iteration: the count of improved labels,
+    and on a ``CsrAdj`` in the same copy the counts its next relax picks a
+    bucket from (``mfbf.read_counts``).
+    """
+    n = adj.n
+    dev = (adj.a if isinstance(adj, DenseAdj) else adj.w).device
+    ids = torch.arange(n, dtype=torch.float32, device=dev)[None, :]
+    T = F = Multpath(ids, torch.ones_like(ids))
+    relax = getattr(adj, "relax_mp_stats", None)
+    probe = getattr(adj, "frontier_counts_mp", None)
+    nact, hint = 1, None if probe is None else tuple(probe(F).tolist())
+    it = 0
+    while nact > 0 and it < n:
+        C = adj.relax_mp(F) if relax is None else relax(F, hint)[0]
+        T_new = multpath_combine(T, C)
+        improved = T_new.w < T.w
+        F = Multpath(torch.where(improved, T_new.w, INF),
+                     torch.where(improved, 1.0, 0.0))
+        T = T_new
+        nact, hint = read_counts(improved.sum(), F, probe)
+        it += 1
+    return T.w[0]

@@ -4,11 +4,11 @@
 batches. Each batch runs MFBF, the t = s self-mask and MFBr on the device;
 the batch loop and the float64 λ accumulator live on the host.
 
-The exact sweep (``mfbc``, ``mfbc_batch``), the sampled path's moments
-entry points (``mfbc_batch_moments``, ``mfbc_batch_moments_segmented``) and
-the traced one (``mfbc_batch_moments_traced``) are ported, on the dense,
-COO and CSR backends; the metric entry points wait for slice 4 of
-ROADMAP.md.
+Entry points: the exact sweep (``mfbc``, ``mfbc_batch``), the sampled
+path's moments (``mfbc_batch_moments``, ``mfbc_batch_moments_segmented``),
+the traced moments (``mfbc_batch_moments_traced``) and their
+metric-generic forms (``metric_batch_moments``,
+``metric_batch_moments_segmented``), on the dense, COO and CSR backends.
 """
 from __future__ import annotations
 
@@ -23,7 +23,7 @@ from repro_torch.core import mfbr as _mfbr
 from repro_torch.core.adjacency import (coo_adj_from_graph,
                                         csr_adj_from_graph,
                                         dense_adj_from_graph)
-from repro_torch.core.monoids import INF
+from repro_torch.core.monoids import INF, Multpath
 from repro_torch.graphs.formats import Graph
 
 
@@ -170,11 +170,134 @@ def mfbc_batch_moments_segmented(adj, sources: torch.Tensor,
     contrib, mask, _, _, _ = _batch_contrib(
         adj, sources, valid, iterate=iterate, max_iters_bf=max_iters_bf,
         max_iters_br=max_iters_br)
+    return _fold_moments(contrib, mask, slot_ids, n_slots)
+
+
+def _fold_moments(contrib: torch.Tensor, mask: torch.Tensor,
+                  slot_ids: np.ndarray, n_slots: int):
+    """Per-slot (Σδ, Σδ², n_reach) of a batch's contributions."""
     # one fold for the three fields; counts below 2²⁴ are exact in float32
     folded = segment_fold(torch.stack(
         [contrib, contrib * contrib, mask.to(contrib.dtype)], dim=1),
         slot_ids, n_slots)
     return folded[:, 0], folded[:, 1], folded[:, 2].to(torch.int32)
+
+
+# ==========================================================================
+# Metric-generic batch bodies (the MetricSpec sweep substrate).
+#
+# Every sampled metric shares MFBF's forward sweep and the t = s self-mask;
+# they differ only in the final elementwise contribution formula (and, for
+# betweenness, the extra MFBr backward sweep). ``kinds`` is the tuple of
+# metric names present in the batch and ``metric_ids`` tags each row with
+# an index into it, so a fused batch mixes metrics row-wise over one relax
+# sequence. The default path keeps calling the betweenness functions above.
+# ==========================================================================
+
+
+def _bounded_mfbf(adj, sources: torch.Tensor, *, hops: int):
+    """MFBF stopped after ``hops - 1`` iterations (Lemma 4.1: T is then
+    exactly the ≤ ``hops``-edge shortest paths; finiteness is hop-bounded
+    reachability). ``hops=1`` runs none: T is the direct-edge row gather.
+
+    One host read before each iteration: the frontier's population (an
+    empty frontier ends the loop early, which changes no value) and, on a
+    ``CsrAdj``, the counts its relax picks a bucket from, in the same copy.
+    """
+    Tw0 = adj.gather_rows(sources)
+    T = F = Multpath(Tw0, torch.isfinite(Tw0).to(Tw0.dtype))
+    probe = getattr(adj, "frontier_counts_mp", None)
+    count = _mfbf._frontier_active(F).sum()
+    for _ in range(hops - 1):
+        nact, hint = _mfbf.read_counts(count, F, probe)
+        if nact == 0:
+            break
+        T, F, count, _ = _mfbf._step(adj, T, F, hint)
+    return T.w, T.m
+
+
+def _metric_contrib(adj, sources: torch.Tensor, valid: torch.Tensor,
+                    metric_ids: torch.Tensor, *, kinds, hops: int,
+                    iterate: str, max_iters_bf: int, max_iters_br: int):
+    """Metric-generic Algorithm 3 batch body: (contrib, mask).
+
+    kinds: tuple of metric names; rows select theirs via ``metric_ids``.
+    Bounded (khop) and unbounded sweeps never mix — the serving layer
+    groups fusion by ``core.metrics.fuse_group``.
+    """
+    if "khop" in kinds:
+        if not all(k == "khop" for k in kinds):
+            raise ValueError("hop-bounded sweeps cannot fuse with "
+                             f"unbounded metrics: {kinds}")
+        if hops < 1:
+            raise ValueError(f"khop requires hops >= 1, got {hops}")
+        Tw, Tm = _bounded_mfbf(adj, sources, hops=hops)
+    else:
+        Tw, Tm = _mfbf.mfbf(adj, sources, iterate=iterate,
+                            max_iters=max_iters_bf)
+    rows = torch.arange(sources.shape[0], device=Tw.device)
+    Tw[rows, sources.long()] = INF
+    Tm[rows, sources.long()] = 1.0
+    mask = torch.isfinite(Tw) & valid[:, None]
+    Zp = None
+    if "betweenness" in kinds:
+        Zp = _mfbr.mfbr(adj, Tw, Tm, iterate=iterate, max_iters=max_iters_br)
+
+    def one(kind):
+        if kind == "betweenness":
+            return Zp * Tm
+        if kind == "closeness":
+            return Tw  # farness: δ_s(v) = τ(s, v) where finite
+        if kind == "khop":
+            return torch.ones_like(Tw)  # reach indicator within the bound
+        raise ValueError(f"metric {kind!r} has no sampled batch body")
+
+    contrib = one(kinds[0])
+    for i, kind in enumerate(kinds[1:], start=1):
+        contrib = torch.where((metric_ids == i)[:, None], one(kind), contrib)
+    return torch.where(mask, contrib, 0.0), mask
+
+
+def metric_batch_moments(adj, sources: torch.Tensor, valid: torch.Tensor,
+                         metric_ids: torch.Tensor, *, kinds, hops: int = 0,
+                         iterate: str = "while", max_iters_bf: int = 0,
+                         max_iters_br: int = 0
+                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``mfbc_batch_moments`` generalized over per-row metrics.
+
+    Returns (S1, S2, n_reach) over the batch's valid sources, where each
+    row's contribution formula is ``kinds[metric_ids[row]]``'s.
+    """
+    contrib, mask = _metric_contrib(adj, sources, valid, metric_ids,
+                                    kinds=kinds, hops=hops, iterate=iterate,
+                                    max_iters_bf=max_iters_bf,
+                                    max_iters_br=max_iters_br)
+    return (contrib.sum(dim=0), (contrib * contrib).sum(dim=0),
+            mask.sum(dim=0, dtype=torch.int32))
+
+
+def metric_batch_moments_segmented(adj, sources: torch.Tensor,
+                                   valid: torch.Tensor, slot_ids: np.ndarray,
+                                   metric_ids: torch.Tensor, *, kinds,
+                                   n_slots: int, hops: int = 0,
+                                   iterate: str = "while",
+                                   max_iters_bf: int = 0,
+                                   max_iters_br: int = 0
+                                   ) -> Tuple[torch.Tensor, torch.Tensor,
+                                              torch.Tensor]:
+    """``mfbc_batch_moments_segmented`` generalized over per-row metrics.
+
+    The cross-metric fusion primitive: a closeness epoch and a BC forward
+    sweep share one relax sequence, each slot's rows selecting their own
+    contribution formula. ``segment_fold`` adds each slot's rows in row
+    order, so slot j's statistics are bitwise those of its rows alone
+    under the same sweep structure.
+    """
+    contrib, mask = _metric_contrib(adj, sources, valid, metric_ids,
+                                    kinds=kinds, hops=hops, iterate=iterate,
+                                    max_iters_bf=max_iters_bf,
+                                    max_iters_br=max_iters_br)
+    return _fold_moments(contrib, mask, slot_ids, n_slots)
 
 
 def mfbc(g: Graph, *, n_b: Optional[int] = None, backend: str = "dense",

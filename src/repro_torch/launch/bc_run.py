@@ -2,7 +2,8 @@
 
   PYTHONPATH=src python -m repro_torch.launch.bc_run --graph rmat \
       --scale 8 --degree 8 [--weighted] [--nb 64] \
-      [--backend auto|dense|coo|csr] [--device cuda|cpu] [--verify]
+      [--backend auto|dense|coo|csr] [--device cuda|cpu] [--verify] \
+      [--metric betweenness|closeness|khop|components] [--hops k]
 
 Every mode is one call into ``repro_torch.bc``: build a ``BCQuery``, let
 ``BCPlanner`` resolve the backend and batch size (printed as the ``BCPlan``
@@ -24,8 +25,16 @@ epoch-doubling sampler and prints the top-k vertices with their
 confidence intervals. ``--verify`` checks λ (exact) or the ε bound and
 top-k precision (approx) against the numpy Brandes oracle.
 
-``--mesh``, ``--metric`` and ``--ckpt-dir`` of ``repro.launch.bc_run``
-exit naming the slice that brings them.
+``--metric`` swaps the analytic the sweep computes (the MetricSpec
+registry, ``repro_torch.core.metrics``): closeness is the forward-only
+farness profile, ``khop`` (with ``--hops k``) hop-bounded reachability,
+and ``components`` the min-label fixed point (exact mode only, no source
+sweep). ``--verify`` checks each against its own host oracle
+(``closeness_ref``, ``khop_ref``, ``cc_ref``); in approximate mode, for a
+metric other than betweenness, the top-k precision only.
+
+``--mesh`` and ``--ckpt-dir`` of ``repro.launch.bc_run`` exit naming the
+slice that brings them.
 """
 from __future__ import annotations
 
@@ -38,12 +47,18 @@ from repro_torch import resolve_device
 from repro_torch.bc import BCQuery, ExecutionConfig
 from repro_torch.bc import plan as bc_plan
 from repro_torch.bc import solve as bc_solve
-from repro_torch.core.brandes_ref import brandes_bc
+from repro_torch.core.brandes_ref import (brandes_bc, cc_ref, closeness_ref,
+                                          khop_ref)
+from repro_torch.core.metrics import METRICS
 from repro_torch.graphs.generators import from_spec
 
 _UNPORTED = {"mesh": "the distributed step is slice 6",
-             "metric": "metrics other than betweenness are slice 4",
              "ckpt_dir": "per-batch checkpoints are slice 7"}
+# --verify oracles per metric: (name printed, oracle(g, hops))
+_ORACLES = {"betweenness": ("the Brandes", lambda g, hops: brandes_bc(g)),
+            "closeness": ("closeness_ref", lambda g, hops: closeness_ref(g)),
+            "khop": ("khop_ref", lambda g, hops: khop_ref(g, hops=hops)),
+            "components": ("cc_ref", lambda g, hops: cc_ref(g))}
 
 
 def _parse_approx(spec: str):
@@ -67,10 +82,16 @@ def _report_approx(g, res, args, eps, delta):
               f"{res.halfwidth[v]:.2f}")
     if not args.verify:
         return
-    ref = brandes_bc(g)
-    err = float(np.abs(res.lam - ref).max()) / (g.n * max(g.n - 2, 1))
+    name, oracle = _ORACLES[args.metric]
+    ref = oracle(g, args.hops)
     top_ref = set(np.argsort(ref)[::-1][:args.topk].tolist())
     prec = len(top_ref & set(ids.tolist())) / args.topk
+    if args.metric != "betweenness":
+        # Other metrics have their own normalization constants; the ε
+        # bound below is the BC one, so check the ranking only.
+        print(f"[bc] vs {name} oracle: top-{args.topk} precision {prec:.2f}")
+        return
+    err = float(np.abs(res.lam - ref).max()) / (g.n * max(g.n - 2, 1))
     print(f"[bc] vs Brandes oracle: max normalized error {err:.4f} "
           f"(eps={eps}), top-{args.topk} precision {prec:.2f}")
     if err > eps:
@@ -107,12 +128,14 @@ def main(argv=None):
                     choices=["bernstein", "normal"])
     ap.add_argument("--max-samples", type=int, default=0)
     ap.add_argument("--mesh", default="")
-    ap.add_argument("--metric", default="betweenness")
+    ap.add_argument("--metric", default="betweenness", choices=METRICS,
+                    help="graph metric to solve (MetricSpec registry)")
+    ap.add_argument("--hops", type=int, default=0,
+                    help="hop bound (edges) for --metric khop")
     ap.add_argument("--ckpt-dir", default="")
     args = ap.parse_args(argv)
     for opt, why in _UNPORTED.items():
-        value = getattr(args, opt)
-        if value and value != "betweenness":
+        if getattr(args, opt):
             raise SystemExit(f"[bc] --{opt.replace('_', '-')} is not ported "
                              f"yet: {why} of ROADMAP.md")
     try:
@@ -134,8 +157,12 @@ def main(argv=None):
                   max_samples=args.max_samples or None)
         print(f"[bc] approx mode: eps={eps} delta={delta} "
               f"strategy={args.strategy} rule={args.rule}")
-    query = BCQuery(n_b=args.nb or None, execution=execution, seed=args.seed,
-                    **kw)
+    try:
+        query = BCQuery(n_b=args.nb or None, execution=execution,
+                        seed=args.seed, metric=args.metric, hops=args.hops,
+                        **kw)
+    except ValueError as e:  # e.g. --metric khop without --hops
+        raise SystemExit(f"[bc] bad query: {e}")
     pl = bc_plan(g, query, n_devices=1, device=args.device)
     print(f"[bc] {pl.summary()} execution={pl.execution.describe()}")
 
@@ -169,8 +196,10 @@ def main(argv=None):
     print("[bc] top-5 central vertices:", list(zip(top.tolist(),
                                                    np.round(lam[top], 2))))
     if args.verify:
-        np.testing.assert_allclose(lam, brandes_bc(g), rtol=1e-4, atol=1e-6)
-        print("[bc] verified against the Brandes oracle")
+        name, oracle = _ORACLES[args.metric]
+        np.testing.assert_allclose(lam, oracle(g, args.hops), rtol=1e-4,
+                                   atol=1e-6)
+        print(f"[bc] verified against {name} oracle")
     return lam
 
 

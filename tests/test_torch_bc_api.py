@@ -23,7 +23,7 @@ import torch
 
 import repro.bc as jbc
 import repro.approx.sampling as jsam
-from repro.core import brandes_bc
+from repro.core import brandes_bc, cc_ref, closeness_ref, khop_ref
 from repro.graphs.generators import rmat
 import repro_torch.bc as tbc
 from repro_torch.launch import bc_run
@@ -304,23 +304,27 @@ def test_unported_paths_name_their_slice():
         tbc.plan(g, tbc.BCQuery(), mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="slice 6"):
         tbc.solve(g, tbc.BCQuery(), mesh=object(), device="cpu")
+    # slice 4 is ported: every metric runs, against its oracle
     dense = tbc.BCQuery(n_b=16, execution=tbc.ExecutionConfig(
         backend="dense"))
+    oracles = {"closeness": closeness_ref(g), "khop": khop_ref(g, hops=2),
+               "components": cc_ref(g)}
     for metric, hops in (("closeness", 0), ("khop", 2), ("components", 0)):
         q = tbc.BCQuery(metric=metric, hops=hops, n_b=16,
                         execution=tbc.ExecutionConfig(backend="dense"))
-        with pytest.raises(NotImplementedError, match="slice 4"):
-            tbc.solve(g, q, device="cpu")
+        np.testing.assert_allclose(tbc.solve(g, q, device="cpu").lam,
+                                   oracles[metric], rtol=1e-5)
     ex = tbc.build_executor(g, tbc.plan(g, dense, device="cpu"),
                             device="cpu")
-    one = np.zeros(4, np.int32), np.ones(4, bool)
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        ex.step(*one, metric="closeness")
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        ex.step_sum(*one, metric="khop", hops=2)
-    with pytest.raises(NotImplementedError, match="slice 4"):
+    one = np.array([0, 3, 5, 7], np.int32), np.ones(4, bool)
+    np.testing.assert_allclose(ex.step(*one, metric="closeness")[0],
+                               closeness_ref(g, sources=one[0]), rtol=1e-5)
+    np.testing.assert_array_equal(ex.step_sum(*one, metric="khop", hops=2),
+                                  khop_ref(g, sources=one[0], hops=2))
+    np.testing.assert_allclose(
         ex.step_segmented(*one, np.zeros(4, np.int32), 1,
-                          metrics=["closeness"])
+                          metrics=["closeness"])[0][0],
+        closeness_ref(g, sources=one[0]), rtol=1e-5)
 
 
 def test_query_has_no_deprecated_keywords():
@@ -366,7 +370,8 @@ def test_bc_run_without_a_card_names_the_cpu(monkeypatch):
     # slice 3 (None: no slice to name)
     (["--backend", "auto", "--nb", "0", "--scale", "8"], None),
     (["--mesh", "2x2"], "slice 6"),
-    (["--metric", "closeness"], "slice 4"),
+    # slice 4 is ported: the metric runs and passes its own oracle
+    (["--metric", "closeness"], None),
     (["--ckpt-dir", "ck"], "slice 7"),
 ])
 def test_bc_run_unported_options_name_their_slice(argv, slice_, capsys):
@@ -377,5 +382,7 @@ def test_bc_run_unported_options_name_their_slice(argv, slice_, capsys):
         return
     lam = bc_run.main(argv + ["--verify"])
     out = capsys.readouterr().out
-    assert "backend=csr" in out and "verified against the Brandes" in out
+    oracle = "closeness_ref" if "closeness" in argv else "the Brandes"
+    assert f"verified against {oracle} oracle" in out
+    assert "--backend" not in argv or "backend=csr" in out
     assert np.all(np.isfinite(lam))

@@ -49,6 +49,8 @@ _MODULES = {
     "repro_torch.bc.fusion", "repro_torch.bc.refine",
     # slice 3: the COO and CSR backends and the calibration command
     "repro_torch.kernels.segment_relax", "repro_torch.launch.calibrate",
+    # slice 4: the metric bodies and the BFS baseline
+    "repro_torch.core.metrics", "repro_torch.core.bfs_bc",
 }
 
 _BANNED = re.compile(r"^\s*(?:import|from)\s+(?:jax|repro)\b", re.MULTILINE)

@@ -241,3 +241,37 @@ def test_mfbc_on_card_runs_the_kernels(cuda):
     assert multpath_matmul_cuda.launches > before[0]
     assert centpath_matmul_cuda.launches > before[1]
     np.testing.assert_allclose(lam, brandes_bc(g), rtol=1e-5, atol=1e-8)
+
+
+@pytest.mark.cuda
+def test_one_row_relax_on_a_for_batches_adjacency(cuda):
+    """The components sweep relaxes one (1, n) row on an adjacency whose
+    split count was fixed for 64 rows (``DenseAdj.for_batches``), with
+    zero-weight arcs: the row matches the plain version and is bitwise
+    the same row relaxed in a 64-row batch."""
+    from repro_torch.core.adjacency import DenseAdj
+    from repro_torch.core.monoids import Centpath, Multpath
+
+    n = 3342
+    rng = np.random.default_rng(1)
+    a = _rand_adj(rng, n, n, density=0.01)
+    a[a == 1.0] = 0.0  # zero-weight arcs: every label that reaches ties
+    adj = DenseAdj(_t(a, cuda)).for_batches(64)
+    fw, fm = (_t(x, cuda) for x in _rand_multpath(rng, 64, n))
+    cw, cp = (_t(x, cuda) for x in _rand_centpath(rng, 64, n))
+    before = (multpath_matmul_cuda.launches, centpath_matmul_cuda.launches)
+    row = adj.relax_mp(Multpath(fw[:1], fm[:1]))
+    batch = adj.relax_mp(Multpath(fw, fm))
+    crow = adj.relax_cp(Centpath(cw[:1], cp[:1], None))
+    cbatch = adj.relax_cp(Centpath(cw, cp, None))
+    torch.cuda.synchronize()
+    assert (multpath_matmul_cuda.launches,
+            centpath_matmul_cuda.launches) == (before[0] + 2, before[1] + 2)
+    want = ref.multpath_matmul_ref(fw[:1], fm[:1], adj.a)
+    assert torch.equal(row.w, want[0])
+    torch.testing.assert_close(row.m, want[1], rtol=1e-6, atol=0.0)
+    cwant = ref.centpath_matmul_ref(cw[:1], cp[:1], adj.at)
+    assert torch.equal(crow.w, cwant[0]) and torch.equal(crow.c, cwant[2])
+    torch.testing.assert_close(crow.p, cwant[1], rtol=1e-5, atol=0.0)
+    for x, y in zip(tuple(row) + tuple(crow), tuple(batch) + tuple(cbatch)):
+        assert torch.equal(x, y[:1])

@@ -43,6 +43,9 @@ CASES = {
     "all_ties": (40, [3, 40, 300, 600, 0, 1, 70]),
     # +inf weights (padding arcs), -inf in MFBr, a short and a long run
     "inf_weights": (16, [7, 0, 513, 64, 2]),
+    # one row, as the components sweep relaxes it: zero weights, so every
+    # candidate of a run ties, in runs past LONG_RUN and short ones
+    "zero_ties_nb1": (1, [700, 0, 3, 300, 1, 257]),
 }
 # on the card also a run as long as R-MAT scale 18's largest degree
 CARD_CASES = {**CASES, "long_25231": (16, [25231] + list(range(40)))}
@@ -67,11 +70,11 @@ def make_case(case, kind, seed=0):
     L = seg.size
     col = rng.integers(0, n, L)
     off = INF if mp else -INF
-    if case == "all_ties":
+    if case in ("all_ties", "zero_ties_nb1"):
         fw = np.zeros((nb, n), np.float32)
         f2 = np.ones((nb, n), np.float32)
         f2[:, 0] = 2.0 ** 24  # 1 + 2**24 rounds back to 2**24
-        w = np.ones(L, np.float32)
+        w = np.full(L, 0.0 if case == "zero_ties_nb1" else 1.0, np.float32)
     else:
         active = rng.random((nb, n)) < 0.6
         fw = np.where(active, rng.integers(0, 6, (nb, n)), off)
@@ -83,8 +86,9 @@ def make_case(case, kind, seed=0):
             w[rng.random(L) < 0.2] = np.inf
             if not mp:
                 w[rng.random(L) < 0.1] = -np.inf
-    fw[-1] = off  # a row with no finite candidate
-    f2[-1] = 0
+    if nb > 1:
+        fw[-1] = off  # a row with no finite candidate
+        f2[-1] = 0
     return fw, f2, seg, col, w, n
 
 
@@ -250,7 +254,7 @@ def test_emulated_schedule_matches_plain_and_reference(kind, case, threshold):
     _eq(got, _plain(kind, fw, f2, r), "emulation vs plain")
     _eq(got, _jax_relax(kind, fw, f2, seg, col, w, n),
         "emulation vs reference")
-    if case == "all_ties":
+    if case in ("all_ties", "zero_ties_nb1"):
         # the order is observable: some run's values added smallest first
         # give other bits than in arc order, which the sums keep
         differs = False
