@@ -99,10 +99,38 @@ order; any failed check raises and the script exits non-zero:
       the port's dense ``mfbc`` (rtol 1e-5, atol 1e-8), and its first
       batch against ``brandes_bc`` over sources 0..63.
 
+8. serving, through ``repro_torch.serve``'s HTTP gateway on an ephemeral
+   port (urllib; the solver on the gateway's worker thread). Each
+   graph's executor is built and run once on the main thread first, and
+   that warm-up is timed apart. Requests are posted to the listener
+   before the worker starts, so they are admitted in one tick:
+   a. scale 14, dense (``ExecutionConfig(backend="dense")``, the
+      planner's n_b, checkpoints on): a betweenness ε 0.1 interactive and
+      a closeness ε 0.1 normal request, fused; the identical repeat (HTTP
+      200, the byte-identical payload); ε 0.07 (202, ``refining``, then
+      ``refined``). Then, on the service's own executor: each answer
+      bitwise equal to the same request served alone, the lone
+      betweenness request to ``solve`` over its (seed, rid) stream, and
+      the refined answer to a scratch run at ε 0.07;
+   b. scale 18 (phase 6d's graph), unpinned, 4 slots: betweenness ε 0.1
+      (interactive), closeness ε 0.1 (normal), khop 2 (batch) and
+      components; each request's submit→done latency, samples and
+      epochs, the cache hit's round trip, ``/v1/graphs``, the learned
+      admission corrections and peak device memory; the components labels
+      bitwise ``cc_ref`` (7c's), the betweenness and khop answers bitwise
+      ``solve`` over their streams;
+   c. overload without a race: 12 batch-tier requests at a horizon of
+      1.5 predicted solves before the worker starts draw one 202 and
+      eleven 429s with ``Retry-After``; an interactive request is
+      admitted; then the worker drains both; under ``overload="degrade"``
+      a request is served at ε 0.3 with ``degraded_from``.
+   Any error status, error count, poll timeout or dead worker fails.
+
 Each main-path run (phases 3, 4, 5a, 5b on the dense kernels, 6c and 6d
-on the sparse relax, and every run of 7a, 7c and 7d on its backend's
-kernels) starts with the launch counts at 0 and fails if a kernel of its
-path did not launch in it. The line before the last is one
+on the sparse relax, every run of 7a, 7c and 7d on its backend's
+kernels, and the served requests of 8a on the dense kernels, 8b and 8c on
+the sparse relax) starts with the launch counts at 0 and fails if a kernel
+of its path did not launch in it. The line before the last is one
 JSON object with each kernel's launches (summed over those runs), error,
 times and bound; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -115,7 +143,10 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.error
+import urllib.request
 
 import numpy as np
 import torch
@@ -151,6 +182,11 @@ from repro_torch.kernels.tropical_mm import (BM, BN,  # noqa: E402
                                              multpath_matmul_cuda,
                                              pick_splits, sm_count)
 from repro_torch.launch import calibrate  # noqa: E402
+from repro_torch.serve import (BCGateway, BCService,  # noqa: E402
+                               GatewayConfig, start_gateway)
+from repro_torch.serve.bc_service import BCRequest  # noqa: E402
+from repro_torch.serve.gateway import (GatewayHTTPServer,  # noqa: E402
+                                       GatewayServer)
 from repro_torch.spgemm.cost_model import load_calibration  # noqa: E402
 
 INF = float("inf")
@@ -1036,9 +1072,9 @@ def first_metric_batch(g, q, metric: str, hops: int):
     return t_batch, pl
 
 
-def phase7c(g, launches) -> None:
+def phase7c(g, launches) -> np.ndarray:
     """Scale 18: approximate closeness and khop (hops 2), and exact
-    components, all unpinned."""
+    components, all unpinned. Returns ``cc_ref`` of ``g``."""
     for metric, hops in (("closeness", 0), ("khop", 2)):
         q = metric_query(metric, hops, mode="approx", eps=0.05, delta=0.1,
                          topk=10)
@@ -1080,6 +1116,7 @@ def phase7c(g, launches) -> None:
         f"(iterations), launches {phase}, peak device memory "
         f"{peak / 2**30:.2f} GiB; {len(np.unique(want))} component(s), "
         f"bitwise equal to cc_ref ({t_ref:.1f}s on the host)")
+    return want
 
 
 def phase7d(launches) -> None:
@@ -1116,6 +1153,324 @@ def phase7d(launches) -> None:
     np.testing.assert_allclose(first, want, rtol=1e-5, atol=1e-8)
     log("7d: bfs_bc_batch over sources 0..63 matches brandes_bc (rtol 1e-5, "
         "atol 1e-8)")
+
+
+# -- phase 8: serving --------------------------------------------------------
+
+POLL_S = 600  # deadline of one request, submit to done (a tick holds the lock)
+HOST = "127.0.0.1"
+
+
+def http(method: str, url: str, doc=None):
+    """(HTTP status, JSON document, headers) of one call to the gateway."""
+    data = None if doc is None else json.dumps(doc).encode()
+    req = urllib.request.Request(url, data=data, method=method, headers={
+        "Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=POLL_S) as r:
+            return r.status, json.loads(r.read()), dict(r.headers)
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read()), dict(e.headers)
+
+
+def listener(gw) -> GatewayServer:
+    """The gateway's HTTP front on an ephemeral port with its worker not
+    started: what is posted now is queued before the first tick."""
+    httpd = GatewayHTTPServer((HOST, 0), gw)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    return GatewayServer(gateway=gw, httpd=httpd, thread=thread)
+
+
+def post(srv, doc, expect, label: str):
+    st, out, headers = http("POST", f"{srv.url}/v1/bc", doc)
+    if st not in expect:
+        raise AssertionError(f"{label}: POST {doc} answered {st} {out}")
+    return st, out, headers
+
+
+def poll_done(srv, rid: int, label: str) -> dict:
+    """Poll one request until it is done; fail on an error status, on a
+    worker that is not alive after a poll, or past ``POLL_S``."""
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < POLL_S:
+        st, doc, _ = http("GET", f"{srv.url}/v1/bc/{rid}")
+        worker = srv.gateway._worker
+        if worker is None or not worker.is_alive():
+            raise AssertionError(f"{label}: the gateway's worker is not "
+                                 f"alive (rid {rid})")
+        if st != 200 or doc["status"] == "error":
+            raise AssertionError(f"{label}: rid {rid}: HTTP {st} {doc}")
+        if doc["status"] == "done":
+            return doc
+        time.sleep(0.02)
+    raise AssertionError(f"{label}: rid {rid} not done within {POLL_S}s")
+
+
+def close_clean(srv, label: str) -> dict:
+    """The metrics document, with no error counted; then the server closed
+    (which re-raises whatever stopped its worker)."""
+    _, m, _ = http("GET", f"{srv.url}/v1/metrics")
+    srv.close()
+    if m["totals"]["errors"]:
+        raise AssertionError(f"{label}: errors counted: {m['totals']}")
+    return m
+
+
+ANSWER = ("topk", "lam", "halfwidth", "n_samples", "n_epochs", "converged")
+
+
+def same_answer(got: dict, want: dict, label: str) -> None:
+    """Two wire payloads hold one answer, bitwise: JSON writes each float64
+    in its shortest exact form."""
+    for field in ANSWER:
+        if got[field] != want[field]:
+            raise AssertionError(f"{label}: {field} differs: {got[field]} "
+                                 f"vs {want[field]}")
+
+
+def alone(svc, req) -> dict:
+    """One request served alone, on the service's own executor, on the
+    main thread (the gateway closed): its wire payload."""
+    svc.submit(req)
+    (resp,) = svc.run()
+    svc.finished.clear()
+    return resp.to_json()
+
+
+def solved(g, svc, name: str, req) -> dict:
+    """``solve`` over the (seed, rid) stream of ``req`` on the service's
+    executor, as a wire payload's answer fields. ``req`` must plan the
+    executor's n_b: the service then runs it as ``solve`` does."""
+    ex = svc.executor_for(name)
+    if svc.request_plan(req).n_b != ex.n_b:
+        raise AssertionError(f"rid {req.rid} plans another n_b than the "
+                             "executor's: it would not run as solve does")
+    res = solve(g, BCQuery(mode="approx", eps=req.eps, delta=req.delta,
+                           topk=req.k, rule=req.rule, seed=(req.seed,
+                                                            req.rid),
+                           metric=req.metric, hops=req.hops),
+                executor=ex, device=DEV).approx
+    ids = res.topk(req.k)
+    return {"topk": ids.tolist(), "lam": [float(x) for x in res.lam[ids]],
+            "halfwidth": [float(x) for x in res.halfwidth[ids]],
+            "n_samples": res.n_samples, "n_epochs": res.n_epochs,
+            "converged": res.converged}
+
+
+def warm(svc, name: str, label: str) -> None:
+    """Build the graph's executor and run one source through it on the
+    main thread, before any request is timed."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ex = svc.executor_for(name)
+    ex.step(np.zeros(1, np.int32), np.ones(1, bool))
+    torch.cuda.synchronize()
+    log(f"{label}: executor built and warmed on the main thread in "
+        f"{time.perf_counter() - t0:.3f}s: {ex.plan.summary()} "
+        f"execution={ex.plan.execution.describe()}")
+
+
+def served(label: str, doc: dict) -> str:
+    r = doc["result"]
+    return (f"{label} rid {doc['rid']} ({doc['tier']}): "
+            f"{doc['latency_s']:.3f}s submit->done, {r['n_samples']} samples, "
+            f"{r['n_epochs']} epochs, converged={r['converged']}, plan "
+            f"{r['plan']['backend']} n_b={r['plan']['n_b']} predicted "
+            f"{r['plan']['predicted_seconds']:.4f}s")
+
+
+def phase8a(launches) -> dict:
+    """Dense serving at scale 14 through the HTTP gateway: a betweenness
+    and a closeness request fused, the cache hit, a refine; then each
+    answer against the same request alone, ``solve`` and a scratch run."""
+    name = "rmat-s14-w"
+    g = graph(14)
+    svc = BCService({name: g}, execution=ExecutionConfig(backend="dense"),
+                    checkpoints=True, device=DEV)
+    warm(svc, name, "8a")
+    gw = BCGateway(svc, GatewayConfig(horizon_s=1e9))
+    srv = listener(gw)
+    bc = {"graph": name, "eps": 0.1, "priority": "interactive"}
+    cl = {"graph": name, "eps": 0.1, "metric": "closeness"}
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rid_bc = post(srv, bc, (202,), "8a")[1]["rid"]
+    rid_cl = post(srv, cl, (202,), "8a")[1]["rid"]
+    gw.start()  # both queued: admitted in one tick, fused
+    done = {rid: poll_done(srv, rid, "8a") for rid in (rid_bc, rid_cl)}
+    t_pair = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    st, hit, _ = post(srv, bc, (200,), "8a: the identical repeat")
+    t_hit = time.perf_counter() - t1
+    if not hit["cached"] or json.dumps(hit["result"]) != json.dumps(
+            done[rid_bc]["result"]):
+        raise AssertionError("8a: the cache hit is not the byte-identical "
+                             "payload")
+    tight = {**bc, "eps": 0.07}
+    _, part, _ = post(srv, tight, (202,), "8a: the tighter request")
+    if not (part["status"] == "partial" and part.get("refining")
+            and part["result"] == done[rid_bc]["result"]):
+        raise AssertionError(f"8a: the tighter request is not a refine: "
+                             f"{part}")
+    refined = poll_done(srv, part["rid"], "8a")
+    if not refined["refined"]:
+        raise AssertionError("8a: the tighter request did not end refined")
+    t_all = time.perf_counter() - t0
+    phase = tally(launches, DENSE_PATH, "8a")
+    m = close_clean(srv, "8a")
+    for doc in (*done.values(), refined):
+        log(served("8a", doc))
+    log(f"8a: the pair in {t_pair:.3f}s; cache hit HTTP {st} in "
+        f"{1e3 * t_hit:.2f} ms, byte-identical; refine 0.1 -> 0.07: "
+        f"{refined['result']['n_samples']} samples; served in {t_all:.3f}s, "
+        f"launches {phase}; admission correction "
+        f"{m['admission_correction']}")
+
+    # each answer against the same request alone, solve and a scratch run
+    pair = {rid_bc: BCRequest(rid=rid_bc, graph=name, eps=0.1,
+                              priority="interactive"),
+            rid_cl: BCRequest(rid=rid_cl, graph=name, eps=0.1,
+                              metric="closeness")}
+    lone = {}
+    for rid, req in pair.items():
+        lone[rid] = alone(svc, req)
+        same_answer(done[rid]["result"], lone[rid],
+                    f"8a: rid {rid} fused vs alone")
+    same_answer(lone[rid_bc], solved(g, svc, name, pair[rid_bc]),
+                "8a: lone betweenness vs solve")
+    loose = done[rid_bc]["result"]
+    scratch = alone(svc, dataclasses.replace(pair[rid_bc], eps=0.07))
+    if loose["n_samples"] >= loose["plan"]["sample_budget"]:
+        raise AssertionError("8a: the loose run reached its sample budget: "
+                             "its checkpoint is not prefix-exact")
+    same_answer(refined["result"], scratch, "8a: refined vs scratch")
+    log("8a: fused betweenness and closeness == each alone, the lone "
+        "betweenness == solve over its (seed, rid) stream, refined == a "
+        "scratch run at ε 0.07, bitwise (λ̂, halfwidths, top-k, samples, "
+        "epochs)")
+    del svc, gw, srv
+    torch.cuda.empty_cache()
+    return phase
+
+
+def phase8b(g, cc, launches) -> dict:
+    """Sparse serving at scale 18 through the HTTP gateway (unpinned: the
+    planner's backend): betweenness, closeness, khop 2 and components
+    across the three tiers; the answers against ``cc_ref`` and ``solve``.
+    Returns the service (its executor is warm) for 8c."""
+    name = "rmat-s18-w"
+    svc = BCService({name: g}, n_slots=4, checkpoints=True, device=DEV)
+    warm(svc, name, "8b")
+    gw = BCGateway(svc, GatewayConfig(horizon_s=1e9))
+    srv = listener(gw)
+    reqs = [{"graph": name, "eps": 0.1, "priority": "interactive"},
+            {"graph": name, "eps": 0.1, "metric": "closeness"},
+            {"graph": name, "eps": 0.1, "metric": "khop", "hops": 2,
+             "priority": "batch"},
+            {"graph": name, "metric": "components"}]
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rids = [post(srv, doc, (202,), "8b")[1]["rid"] for doc in reqs]
+    gw.start()
+    done = {rid: poll_done(srv, rid, "8b") for rid in rids}
+    wall = time.perf_counter() - t0
+    phase = tally(launches, SPARSE_PATH, "8b")
+    peak = torch.cuda.max_memory_allocated()
+    t1 = time.perf_counter()
+    st, hit, _ = post(srv, reqs[0], (200,), "8b: the identical repeat")
+    t_hit = time.perf_counter() - t1
+    if json.dumps(hit["result"]) != json.dumps(done[rids[0]]["result"]):
+        raise AssertionError("8b: the cache hit is not byte-identical")
+    _, graphs, _ = http("GET", f"{srv.url}/v1/graphs")
+    m = close_clean(srv, "8b")
+    for rid in rids:
+        log(served("8b", done[rid]))
+    log(f"8b: served in {wall:.3f}s, launches {phase}, peak device memory "
+        f"{peak / 2**30:.2f} GiB; cache hit HTTP {st} in {1e3 * t_hit:.2f} "
+        "ms, byte-identical")
+    for row in graphs["graphs"]:
+        log(f"8b: /v1/graphs: {row['name']} n={row['n']} m={row['m']} "
+            f"digest={row['digest'][:16]} plan {row['plan']['backend']} "
+            f"n_b={row['plan']['n_b']}")
+    log(f"8b: /v1/metrics admission correction (observed / predicted "
+        f"seconds): {m['admission_correction']}")
+
+    res = done[rids[3]]["result"]
+    if res["lam"] != np.sort(cc)[::-1][:10].tolist() or \
+            res["lam"] != cc[res["topk"]].tolist():
+        raise AssertionError("8b: components top-10 differs from cc_ref")
+    np.testing.assert_array_equal(svc.executor_for(name).labels(), cc,
+                                  err_msg="8b: components labels")
+    for rid, kw in ((rids[0], dict(priority="interactive")),
+                    (rids[2], dict(metric="khop", hops=2,
+                                   priority="batch"))):
+        req = BCRequest(rid=rid, graph=name, eps=0.1, **kw)
+        same_answer(done[rid]["result"], solved(g, svc, name, req),
+                    f"8b: rid {rid} vs solve")
+    log("8b: components labels == cc_ref, bitwise (the top-10 on the wire "
+        "and all n from the executor); the betweenness (fused with "
+        "closeness) and khop answers == solve over their streams, bitwise")
+    return svc, phase
+
+
+def phase8c(svc, launches) -> dict:
+    """Overload at scale 18 without a race: the listener takes the burst
+    before the worker starts; then the worker drains."""
+    name = "rmat-s18-w"
+    pred = float(svc.request_plan(BCRequest(
+        rid=0, graph=name, eps=0.2, priority="batch")).predicted_seconds)
+    gw = BCGateway(svc, GatewayConfig(horizon_s=1.5 * pred))
+    srv = listener(gw)
+    flood = {"graph": name, "eps": 0.2, "priority": "batch"}
+    codes, admitted = [], []
+    for _ in range(12):
+        st, doc, headers = post(srv, flood, (202, 429), "8c")
+        codes.append(st)
+        if st == 429:
+            if "Retry-After" not in headers or doc["retry_after_s"] <= 0:
+                raise AssertionError(f"8c: a 429 without Retry-After: {doc}")
+        else:
+            admitted.append(doc["rid"])
+    st, doc, _ = post(srv, {**flood, "priority": "interactive"}, (202,),
+                      "8c: interactive under the flood")
+    admitted.append(doc["rid"])
+    _, m, _ = http("GET", f"{srv.url}/v1/metrics")
+    tiers = m["tiers"]
+    if codes != [202] + [429] * 11 or tiers["batch"]["rejected"] != 11 \
+            or tiers["interactive"]["rejected"]:
+        raise AssertionError(f"8c: burst {codes}, tiers {tiers}")
+    log(f"8c: horizon 1.5 x {pred:.4f}s predicted: the batch flood drew "
+        f"{codes}; Retry-After on each 429; the interactive request "
+        "admitted (202)")
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gw.start()
+    for rid in admitted:
+        poll_done(srv, rid, "8c")
+    dt = time.perf_counter() - t0
+    phase = tally(launches, SPARSE_PATH, "8c")
+    m = close_clean(srv, "8c")
+    if m["totals"]["completed"] != len(admitted):
+        raise AssertionError(f"8c: {m['totals']}")
+    gw = BCGateway(svc, GatewayConfig(horizon_s=0.5 * pred,
+                                      overload="degrade", degrade_eps=0.3))
+    srv = start_gateway(gw, host=HOST)
+    st, doc, _ = post(srv, {"graph": name, "eps": 0.1}, (202,), "8c")
+    doc = poll_done(srv, doc["rid"], "8c")
+    m = close_clean(srv, "8c")
+    if doc.get("degraded_from") != 0.1 or doc["eps"] != 0.3 \
+            or m["totals"]["degraded"] != 1:
+        raise AssertionError(f"8c: degrade not recorded: {doc}")
+    log(f"8c: drained {len(admitted)} admitted requests in {dt:.3f}s, "
+        f"launches {phase}, errors 0; overload='degrade' served ε 0.1 at "
+        f"ε {doc['eps']} with degraded_from {doc['degraded_from']} in "
+        f"{doc['latency_s']:.3f}s")
+    return phase
 
 
 def graph(scale: int):
@@ -1338,9 +1693,18 @@ def main() -> None:
     t7 = time.perf_counter()
     phase7a(g12, launches)
     phase7b(g12)
-    phase7c(g18, launches)
+    cc18 = phase7c(g18, launches)
     phase7d(launches)
     log(f"phase 7 in {time.perf_counter() - t7:.1f}s; the script in "
+        f"{time.perf_counter() - t_start:.1f}s")
+
+    # 8. serving through the HTTP gateway
+    t8 = time.perf_counter()
+    served_8a = phase8a(launches)
+    svc18, served_8b = phase8b(g18, cc18, launches)
+    served_8c = phase8c(svc18, launches)
+    log(f"phase 8 in {time.perf_counter() - t8:.1f}s, launches 8a "
+        f"{served_8a}, 8b {served_8b}, 8c {served_8c}; the script in "
         f"{time.perf_counter() - t_start:.1f}s")
 
     rows = [{"name": name, "route": "cuda", "source": k["source"],

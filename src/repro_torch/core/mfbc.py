@@ -83,15 +83,15 @@ def mfbc_batch_moments(adj, sources: torch.Tensor, valid: torch.Tensor, *,
 
     Returns (S1, S2, n_reach) where, over the batch's valid sources s,
     ``S1(v) = Σ_s δ_s(v)``, ``S2(v) = Σ_s δ_s(v)²`` and
-    ``n_reach(v) = Σ_s [v reachable from s]`` (int32). S1 equals
-    ``mfbc_batch``'s λ_partial; S2 feeds the confidence intervals of the
-    sampled estimator (``repro_torch.approx``).
+    ``n_reach(v) = Σ_s [v reachable from s]`` (int32). S1 is
+    ``mfbc_batch``'s λ_partial with the rows added in row order (``_rows``);
+    S2 feeds the confidence intervals of the sampled estimator
+    (``repro_torch.approx``).
     """
     contrib, mask, _, _, _ = _batch_contrib(
         adj, sources, valid, iterate=iterate, max_iters_bf=max_iters_bf,
         max_iters_br=max_iters_br)
-    return (contrib.sum(dim=0), (contrib * contrib).sum(dim=0),
-            mask.sum(dim=0, dtype=torch.int32))
+    return _rows(contrib, mask)
 
 
 def mfbc_batch_moments_traced(adj, sources: torch.Tensor,
@@ -107,8 +107,7 @@ def mfbc_batch_moments_traced(adj, sources: torch.Tensor,
     contrib, mask, _, _, (tr_bf, tr_br) = _batch_contrib(
         adj, sources, valid, max_iters_bf=max_iters_bf,
         max_iters_br=max_iters_br, trace=True)
-    return (contrib.sum(dim=0), (contrib * contrib).sum(dim=0),
-            mask.sum(dim=0, dtype=torch.int32), tr_bf, tr_br)
+    return (*_rows(contrib, mask), tr_bf, tr_br)
 
 
 def segment_fold(x: torch.Tensor, slot_ids: np.ndarray,
@@ -181,6 +180,17 @@ def _fold_moments(contrib: torch.Tensor, mask: torch.Tensor,
         [contrib, contrib * contrib, mask.to(contrib.dtype)], dim=1),
         slot_ids, n_slots)
     return folded[:, 0], folded[:, 1], folded[:, 2].to(torch.int32)
+
+
+def _rows(contrib: torch.Tensor, mask: torch.Tensor):
+    """(Σδ, Σδ², n_reach) of a whole batch, its rows added in row order:
+    ``_fold_moments`` with every row in one slot. A batch's statistics are
+    then bitwise what the segmented step gives the same rows as a slot, so
+    a request served alone (``step``) equals it served fused
+    (``step_segmented``). Padding rows add zeros."""
+    s1, s2, nr = _fold_moments(contrib, mask,
+                               np.zeros(contrib.shape[0], np.int64), 1)
+    return s1[0], s2[0], nr[0]
 
 
 # ==========================================================================
@@ -272,8 +282,7 @@ def metric_batch_moments(adj, sources: torch.Tensor, valid: torch.Tensor,
                                     kinds=kinds, hops=hops, iterate=iterate,
                                     max_iters_bf=max_iters_bf,
                                     max_iters_br=max_iters_br)
-    return (contrib.sum(dim=0), (contrib * contrib).sum(dim=0),
-            mask.sum(dim=0, dtype=torch.int32))
+    return _rows(contrib, mask)
 
 
 def metric_batch_moments_segmented(adj, sources: torch.Tensor,

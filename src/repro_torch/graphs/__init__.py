@@ -1,4 +1,5 @@
-from repro_torch.graphs.formats import (Graph, coo_to_csr, coo_to_dense,
+from repro_torch.graphs.formats import (Graph, GraphStats, coo_to_csr,
+                                        coo_to_dense, graph_digest,
                                         pad_edges)
 from repro_torch.graphs.generators import (erdos_renyi, from_spec,
                                            path_graph, ring_of_cliques, rmat,
@@ -6,6 +7,8 @@ from repro_torch.graphs.generators import (erdos_renyi, from_spec,
 
 __all__ = [
     "Graph",
+    "GraphStats",
+    "graph_digest",
     "coo_to_csr",
     "coo_to_dense",
     "pad_edges",

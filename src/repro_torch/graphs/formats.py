@@ -2,9 +2,11 @@
 
 A numpy copy of the in-memory half of ``repro.graphs.formats``: ``Graph``
 (with ``dedup``, ``symmetrize`` and ``remove_isolated``), ``coo_to_dense``,
-``coo_to_csr`` and ``pad_edges``. It stays numpy, so the same seed gives
-byte-identical graphs in both packages. The streaming ingest half
-(``EdgeListReader``, ``ChunkedCSRBuilder``, digests) is not ported yet.
+``coo_to_csr`` and ``pad_edges``, and the content identity the serving
+stack keys its cache by: ``GraphStats`` and ``graph_digest``. It stays
+numpy, so the same seed gives byte-identical graphs in both packages, and
+the same graph the same digest string. The streaming ingest half
+(``EdgeListReader``, ``ChunkedCSRBuilder``) is not ported yet.
 
 No self loops: ``A(i, i) = inf`` structurally, matching the paper
 (Section 2.1: ``A(i,j) = w(i,j)`` iff ``(i,j) in E``).
@@ -12,6 +14,8 @@ No self loops: ``A(i, i) = inf`` structurally, matching the paper
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import struct
 from typing import Optional, Tuple
 
 import numpy as np
@@ -122,3 +126,59 @@ def pad_edges(g: Graph, nnz_padded: Optional[int] = None, multiple: int = 128
     dst = np.concatenate([g.dst, np.full(pad, sink, np.int32)])
     w = np.concatenate([g.w, np.full(pad, np.inf, np.float32)])
     return src, dst, w
+
+
+# ==========================================================================
+# Content identity: stats-only records and the canonical digest.
+# ==========================================================================
+
+
+@dataclasses.dataclass(frozen=True)
+class GraphStats:
+    """What the planner needs to size a run, without the edge arrays.
+
+    ``BCPlanner.plan`` / ``plan_for_request`` accept this in place of a
+    full ``Graph``: a run can be planned from the stats alone. ``digest``
+    is the canonical content digest (``graph_digest``) when known: the key
+    the serving stack's result cache addresses answers by.
+    """
+
+    n: int
+    m: int
+    weighted: bool = False
+    directed: bool = True
+    name: str = "graph"
+    digest: Optional[str] = None
+
+    @classmethod
+    def from_graph(cls, g: Graph, digest: Optional[str] = None
+                   ) -> "GraphStats":
+        return cls(n=g.n, m=g.m, weighted=bool(np.any(g.w != 1.0)),
+                   directed=g.directed, name=g.name, digest=digest)
+
+
+_DIGEST_MAGIC = b"repro-graph-v1"
+
+
+def _digest_update(h, n: int, directed: bool, nnz: int) -> None:
+    h.update(_DIGEST_MAGIC)
+    h.update(struct.pack("<q?q", n, directed, nnz))
+
+
+def graph_digest(g: Graph, chunk: int = 1 << 20) -> str:
+    """Content digest of the *canonical* arc set (dedup order, min weight).
+
+    Invariant under arc order and duplicate arcs: the digest is taken over
+    the ``dedup()``-canonical ``(src, dst, w)`` arrays, streamed in chunks.
+    The bytes hashed are ``repro``'s, so both packages give one graph the
+    same digest, and an ingest that streams the same canonical arcs shares
+    the key.
+    """
+    c = g.dedup()
+    h = hashlib.sha256()
+    _digest_update(h, c.n, c.directed, c.nnz)
+    for lo in range(0, c.nnz, chunk):
+        h.update(c.src[lo:lo + chunk].tobytes())
+        h.update(c.dst[lo:lo + chunk].tobytes())
+        h.update(c.w[lo:lo + chunk].tobytes())
+    return h.hexdigest()

@@ -3,8 +3,11 @@
 * Importing every module of ``repro_torch`` loads neither jax nor any module
   of ``repro`` (checked in a fresh interpreter).
 * No source of the port, nor ``chip_smoke.py``, names jax or ``repro``.
+* ``repro_torch/serve/*.py`` imports only public ``repro_torch.bc`` names
+  (the port's counterpart of ``tools/check_private_imports.py``).
 * The entry points default to the card and raise on a host without one.
 """
+import ast
 import os
 import re
 import subprocess
@@ -51,6 +54,10 @@ _MODULES = {
     "repro_torch.kernels.segment_relax", "repro_torch.launch.calibrate",
     # slice 4: the metric bodies and the BFS baseline
     "repro_torch.core.metrics", "repro_torch.core.bfs_bc",
+    # slice 5: the serving stack and its launcher
+    "repro_torch.graphs.formats", "repro_torch.serve",
+    "repro_torch.serve.cache", "repro_torch.serve.bc_service",
+    "repro_torch.serve.gateway", "repro_torch.launch.bc_serve",
 }
 
 _BANNED = re.compile(r"^\s*(?:import|from)\s+(?:jax|repro)\b", re.MULTILINE)
@@ -76,6 +83,49 @@ def test_port_sources_name_neither_jax_nor_repro():
     assert _BANNED.search("from repro.core import mfbc")
     assert _BANNED.search("import jax.numpy as jnp")
     assert not _BANNED.search("from repro_torch.core import mfbc")
+
+
+def _imports(path: Path):
+    """(module, names) of every absolute ``from X import ...`` and
+    ``import X`` in a source file."""
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module, [a.name for a in node.names]
+        elif isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name, []
+
+
+def test_serve_imports_only_public_bc_names():
+    """The serving stack reaches the solver through the ``repro_torch.bc``
+    facade only: no private name of another subpackage of the port, no
+    submodule of ``repro_torch.bc``, and from the facade only what its
+    ``__all__`` exports."""
+    import repro_torch.bc as tbc
+
+    files = sorted((REPO / "src" / "repro_torch" / "serve").glob("*.py"))
+    assert {f.name for f in files} >= {"__init__.py", "cache.py",
+                                       "bc_service.py", "gateway.py"}
+    bad = []
+    for f in files:
+        for module, names in _imports(f):
+            if not module.startswith("repro_torch"):
+                continue
+            where = f"{f.name}: {module} {names}"
+            if module.startswith("repro_torch.serve"):
+                continue  # within the package
+            if module.startswith("repro_torch.bc."):
+                bad.append(f"{where} (a submodule of the facade)")
+            elif module == "repro_torch.bc":
+                bad += [f"{where} ({n} is not in __all__)" for n in names
+                        if n not in tbc.__all__]
+            elif any(part.startswith("_") for part in module.split(".")) \
+                    or any(n.startswith("_") for n in names):
+                bad.append(f"{where} (private)")
+    assert not bad
+    # the check itself: it sees the facade imports it polices
+    seen = {m for f in files for m, _ in _imports(f)}
+    assert "repro_torch.bc" in seen
 
 
 def test_entry_points_default_to_the_card(monkeypatch):
