@@ -125,31 +125,59 @@ order; any failed check raises and the script exits non-zero:
       admitted; then the worker drains both; under ``overload="degrade"``
       a request is served at ε 0.3 with ``degraded_from``.
    Any error status, error count, poll timeout or dead worker fails.
+9. the distributed Theorem 5.1 step (``repro_torch.launch.mesh``,
+   ``core.dist_bc``, ``bc.MeshExecutor``):
+   a. each product at the mesh's local shapes, (64, 6268, 6268) on
+      data 2 × model 2 and (32, 6268, 12536) on pod 2 × data 1 × model 2
+      at scale 14, against its blocked plain version on the card (``w``,
+      ``c`` bitwise, ``m`` rtol 1e-6, ``p`` rtol 1e-5), timed beside its
+      bound;
+   b. four spawned ranks sharing the card over gloo (gloo stages the CUDA
+      tensors through the host; NCCL refuses two ranks on one card): on
+      each of (2, 2) and (2, 1, 2) one 64-source scale-14 batch through
+      ``MeshExecutor`` against the single-host dense batch (``n_reach``
+      bitwise, S1/S2 rtol 1e-5, atol 1e-8) and identical on every rank,
+      with each rank's bytes per collective kind beside
+      ``model_mesh_bytes``; exact λ of scale 12 on (2, 2) against phase
+      3's; an (ε, δ) = (0.1, 0.1) ``solve(mesh=)`` at scale 14, n_b 64,
+      against the single-host ``solve`` (the same samples and epochs, λ̂
+      rtol 1e-5); the streamed upload of a written binary COO file
+      (``EdgeListReader`` → ``build_sharded_adjacency``), its batch
+      bitwise the eager upload's. Times are of 4 ranks sharing one card,
+      not of a multi-card mesh;
+   c. a one-rank NCCL mesh (1 × 1) in this process: one scale-14 batch
+      bitwise the single-host dense batch.
 
 Each main-path run (phases 3, 4, 5a, 5b on the dense kernels, 6c and 6d
 on the sparse relax, every run of 7a, 7c and 7d on its backend's
-kernels, and the served requests of 8a on the dense kernels, 8b and 8c on
-the sparse relax) starts with the launch counts at 0 and fails if a kernel
+kernels, the served requests of 8a on the dense kernels, 8b and 8c on
+the sparse relax, and every mesh run of 9b on every rank and 9c on the
+dense kernels) starts with the launch counts at 0 and fails if a kernel
 of its path did not launch in it. The line before the last is one
-JSON object with each kernel's launches (summed over those runs), error,
-times and bound; the last line is
+JSON object with each kernel's launches (summed over those runs, and over
+the ranks), error, times and bound; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import json
+import multiprocessing
 import os
+import queue
 import subprocess
 import sys
 import tempfile
 import threading
 import time
+import traceback
 import urllib.error
 import urllib.request
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 if not torch.cuda.is_available():
     sys.exit("chip_smoke: no CUDA device is available")
@@ -173,7 +201,14 @@ from repro_torch.core.mfbc import (mfbc, mfbc_batch,  # noqa: E402
                                    segment_fold)
 from repro_torch.core.metrics import components_graph  # noqa: E402
 from repro_torch.core.mfbf import mfbf  # noqa: E402
+from repro_torch.core.dist_bc import (MeshBCContext,  # noqa: E402
+                                      model_mesh_bytes)
+from repro_torch.core.monoids import Centpath, Multpath  # noqa: E402
+from repro_torch.graphs.formats import (EdgeListReader,  # noqa: E402
+                                        GraphStats, build_sharded_adjacency,
+                                        write_binary_coo)
 from repro_torch.graphs.generators import rmat  # noqa: E402
+from repro_torch.launch.mesh import Mesh  # noqa: E402
 from repro_torch.kernels import _build, ref  # noqa: E402
 from repro_torch.kernels.centpath_mm import centpath_matmul_cuda  # noqa: E402
 from repro_torch.kernels.segment_relax import (LONG_RUN,  # noqa: E402
@@ -1473,6 +1508,320 @@ def phase8c(svc, launches) -> dict:
     return phase
 
 
+# -- phase 9: the distributed step -------------------------------------------
+
+MESH_RANKS = 4  # phase 9b's ranks, all on the one card, over gloo
+MESH_CASES = {"2x2": ((2, 2), ("data", "model")),
+              "2x1x2": ((2, 1, 2), ("pod", "data", "model"))}
+# the local products of those meshes at scale 14 (n = 12536), n_b 64
+LOCAL_SHAPES = ((64, 6268, 6268), (32, 6268, 12536))
+MESH_QUERY = BCQuery(mode="approx", eps=0.1, delta=0.1, n_b=64)
+EXACT_NB = 3344  # 9b's exact scale-12 sweep: every source in one batch
+RANK_TIMEOUT_S = 600
+# The blocked plain relax of the CPU path, on the card: the products'
+# plain versions at shapes whose whole candidate block would not fit.
+PLAIN_BLOCKED = {
+    "multpath_mm": lambda fw, fm, a: tuple(monoids.multpath_relax_dense(
+        Multpath(fw, fm), a, block=128)),
+    "centpath_mm": lambda fw, fp, b: tuple(monoids.centpath_relax_dense(
+        Centpath(fw, fp, None), b, block=128)),
+}
+
+
+def phase9a(gen, errs: dict) -> dict:
+    """Each product at the mesh's local shapes against its blocked plain
+    version on the card: ``w`` and ``c`` bitwise, ``m`` rtol 1e-6, ``p``
+    rtol 1e-5; then its time and % of ``bound``."""
+    out = {}
+    for nb, n, n2 in LOCAL_SHAPES:
+        for name, k in KERNELS.items():
+            fw, f2, adj = inputs("random", name, nb, n, n2, gen)
+            got = k["wrapper"](fw, f2, adj)
+            torch.cuda.synchronize()
+            want = PLAIN_BLOCKED[name](fw, f2, adj)
+            err = compare(name, got, want, f"9a {(nb, n, n2)}")
+            errs[name] = max(errs[name], err)
+            del got, want
+            ms = time_ms(lambda: k["wrapper"](fw, f2, adj), iters=20)
+            plain_ms = time_ms(lambda: PLAIN_BLOCKED[name](fw, f2, adj),
+                               iters=1, warmup=0)
+            b_ms, b_by = bound(name, nb, n, n2)
+            log(f"9a: {name} {(nb, n, n2)} matches its plain version "
+                f"(max |d| {err:.3g}); kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+                f"{100 * b_ms / ms:.1f}% of bound; "
+                f"{launch_shape(nb, n, n2)}")
+            out[(name, nb, n, n2)] = ms
+            del fw, f2, adj
+            torch.cuda.empty_cache()
+    return out
+
+
+def _counts() -> dict:
+    return {name: w.launches for name, w in WRAPPERS.items()}
+
+
+def mesh_rank(rank: int, store: str, results, payload: dict) -> None:
+    """One rank of phase 9b: every case on both meshes, on the card, over
+    gloo. Puts (rank, {case: results}) on ``results``, or a traceback."""
+    try:
+        dist.init_process_group("gloo", init_method=f"file://{store}",
+                                rank=rank, world_size=MESH_RANKS,
+                                timeout=datetime.timedelta(
+                                    seconds=RANK_TIMEOUT_S))
+        g12, g14 = payload["g12"], payload["g14"]
+        src = np.arange(64, dtype=np.int32)
+        val = np.ones(64, bool)
+        meshes = {key: Mesh(shape, names, device="cuda")
+                  for key, (shape, names) in MESH_CASES.items()}
+        out = {"device": str(meshes["2x2"].device),
+               "setup_s": time.time() - payload["spawned"]}
+        for key, mesh in meshes.items():
+            ex = build_executor(g14, plan(g14, MESH_QUERY, mesh=mesh),
+                                mesh=mesh)
+            t0 = time.perf_counter()
+            ctx = ex._context()  # pad, permute and upload A and Aᵀ blocks
+            torch.cuda.synchronize()
+            upload_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            ex.step(src, val)  # the first batch: warm-up, timed apart
+            first_s = time.perf_counter() - t0
+            mesh.reset_counts()
+            reset_counts()
+            t0 = time.perf_counter()
+            moments = ex.step(src, val)
+            out[key] = dict(moments=moments, upload_s=upload_s,
+                            first_s=first_s,
+                            seconds=time.perf_counter() - t0,
+                            bytes=dict(mesh.comm_bytes), sweeps=ctx.sweeps,
+                            n_pad=ctx.n_pad, splits=ctx.splits,
+                            launches=_counts())
+            del ex, ctx
+            torch.cuda.empty_cache()
+        mesh = meshes["2x2"]
+        reset_counts()
+        t0 = time.perf_counter()
+        res = solve(g12, BCQuery(mode="exact", n_b=EXACT_NB), mesh=mesh)
+        out["exact12"] = dict(lam=res.lam, seconds=time.perf_counter() - t0,
+                              n_b=res.plan.n_b, launches=_counts())
+        torch.cuda.empty_cache()
+        reset_counts()
+        t0 = time.perf_counter()
+        res = solve(g14, MESH_QUERY, mesh=mesh)
+        a = res.approx
+        out["solve14"] = dict(lam=a.lam, n_samples=a.n_samples,
+                              n_epochs=a.n_epochs, converged=a.converged,
+                              seconds=time.perf_counter() - t0,
+                              launches=_counts())
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ctx = MeshBCContext(GraphStats.from_graph(g14), mesh)
+        build_sharded_adjacency(EdgeListReader(payload["path"],
+                                               chunk_edges=1 << 16), ctx)
+        ctx.for_batches(MESH_QUERY.n_b)
+        torch.cuda.synchronize()
+        upload_s = time.perf_counter() - t0
+        reset_counts()
+        t0 = time.perf_counter()
+        moments = ctx.run_moments(src, val, nb=64)
+        out["stream"] = dict(moments=moments, upload_s=upload_s,
+                             seconds=time.perf_counter() - t0,
+                             launches=_counts())
+        dist.destroy_process_group()
+        results.put((rank, out))
+    except BaseException:
+        results.put((rank, traceback.format_exc()))
+        raise
+
+
+def run_ranks(payload: dict, tmp: str) -> dict:
+    """Spawn phase 9b's ranks; their results by rank. Fails with the
+    first rank's traceback, or after ``RANK_TIMEOUT_S``; every rank is
+    joined or killed before it returns."""
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    procs = [ctx.Process(target=mesh_rank, args=(
+        r, os.path.join(tmp, "store"), results, payload))
+        for r in range(MESH_RANKS)]
+    for p in procs:
+        p.start()
+    got = {}
+    try:
+        while len(got) < MESH_RANKS:
+            rank, out = results.get(timeout=RANK_TIMEOUT_S)
+            if isinstance(out, str):
+                raise AssertionError(f"9b: rank {rank} failed:\n{out}")
+            got[rank] = out
+    except queue.Empty:
+        raise AssertionError(f"9b: the ranks gave no answer in "
+                             f"{RANK_TIMEOUT_S}s ({len(got)} answered)")
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    return got
+
+
+def rank_launches(got: dict, case: str, total: dict) -> dict:
+    """Launches of one case summed over the ranks; fails unless every rank
+    launched both products in it."""
+    summed = {name: 0 for name in DENSE_PATH}
+    for rank, out in got.items():
+        counts = out[case]["launches"]
+        if not all(counts[name] for name in DENSE_PATH):
+            raise AssertionError(f"9b {case}: a product never ran on rank "
+                                 f"{rank}: {counts}")
+        for name in DENSE_PATH:
+            summed[name] += counts[name]
+    for name, v in summed.items():
+        total[name] += v
+    return summed
+
+
+def same_moments(got, want, label: str, bitwise: bool) -> None:
+    for what, x, y in zip(("S1", "S2"), got, want):
+        if bitwise:
+            np.testing.assert_array_equal(x, y, err_msg=f"{label} {what}")
+        else:
+            np.testing.assert_allclose(x, y, rtol=1e-5, atol=1e-8,
+                                       err_msg=f"{label} {what}")
+    np.testing.assert_array_equal(got[2], want[2],
+                                  err_msg=f"{label} n_reach")
+
+
+def mesh_bytes_line(key: str, out: dict) -> str:
+    """Counted bytes per kind of one batch on one rank beside the model."""
+    shape, names = MESH_CASES[key]
+    n_mp, n_cp, _ = out["sweeps"]
+    b = out["bytes"]
+    model = model_mesh_bytes(out["n_pad"], MESH_QUERY.n_b,
+                             (n_mp + n_cp) / 2, dict(zip(names, shape)))
+    relax = b["gather"] + b["extremum"] + b["tie_sum"]
+    kinds = ", ".join(f"{k} {v / 1e6:.3f} MB" for k, v in b.items())
+    return (f"{kinds}; relaxes mp {n_mp} cp {n_cp}, whose collectives "
+            f"{relax / 1e6:.3f} MB against the model's {model / 1e6:.3f} "
+            f"MB: ratio {relax / model:.3f}")
+
+
+def phase9b(g12, lam12, launches) -> None:
+    """Four ranks sharing the card over gloo at scale 14 (and exact λ at
+    scale 12), against the single-host dense path on the card."""
+    t0 = time.perf_counter()
+    g14 = graph(14)
+    src = np.arange(64, dtype=np.int32)
+    val = np.ones(64, bool)
+    host = build_executor(g14, plan(g14, approx_query(64), device=DEV),
+                          device=DEV)
+    ref = host.step(src, val)
+    del host
+    single = solve(g14, dataclasses.replace(MESH_QUERY, execution=(
+        ExecutionConfig(backend="dense", placement="single_host"))),
+        device=DEV).approx
+    torch.cuda.empty_cache()
+    t_ref = time.perf_counter() - t0
+    build = os.path.join(ROOT, "build")
+    os.makedirs(build, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        path = write_binary_coo(os.path.join(tmp, "rmat14.rcoo"), g14)
+        t0 = time.perf_counter()
+        got = run_ranks(dict(g12=g12, g14=g14, path=path,
+                             spawned=time.time()), tmp)
+        wall = time.perf_counter() - t0
+    r0 = got[0]
+    log(f"9b: single-host references in {t_ref:.1f}s; {MESH_RANKS} ranks "
+        f"over gloo on {r0['device']} (all on one card) answered in "
+        f"{wall:.1f}s, of which spawn, imports and mesh groups "
+        f"{max(out['setup_s'] for out in got.values()):.1f}s")
+    for key in MESH_CASES:
+        out = r0[key]
+        summed = rank_launches(got, key, launches)
+        same_moments(out["moments"], ref, f"9b {key}", bitwise=False)
+        for r in range(1, MESH_RANKS):
+            same_moments(got[r][key]["moments"], out["moments"],
+                         f"9b {key} rank {r}", bitwise=True)
+        log(f"9b {key}: one 64-source batch at scale 14 in "
+            f"{out['seconds']:.3f}s on 4 ranks sharing one H100 over gloo "
+            f"(the first {out['first_s']:.3f}s; upload "
+            f"{out['upload_s']:.3f}s; S={out['splits']}); "
+            f"launches {summed}; == the single-host batch (n_reach bitwise, "
+            f"S1/S2 rtol 1e-5), identical on every rank")
+        for r in range(MESH_RANKS):
+            log(f"9b {key} rank {r} bytes per batch: "
+                f"{mesh_bytes_line(key, got[r][key])}")
+    out = r0["exact12"]
+    summed = rank_launches(got, "exact12", launches)
+    np.testing.assert_allclose(out["lam"], lam12, rtol=1e-5, atol=1e-8)
+    for r in range(1, MESH_RANKS):
+        np.testing.assert_array_equal(got[r]["exact12"]["lam"], out["lam"])
+    log(f"9b: exact λ at scale 12 on 2x2 (n_b {out['n_b']}) in "
+        f"{out['seconds']:.3f}s on 4 ranks sharing one H100 over gloo; "
+        f"launches {summed}; == phase 3's λ (rtol 1e-5, atol 1e-8)")
+    out = r0["solve14"]
+    summed = rank_launches(got, "solve14", launches)
+    if (out["n_samples"], out["n_epochs"]) != (single.n_samples,
+                                               single.n_epochs):
+        raise AssertionError(
+            f"9b: the mesh solve took {out['n_samples']} samples in "
+            f"{out['n_epochs']} epochs, single host {single.n_samples} in "
+            f"{single.n_epochs}")
+    np.testing.assert_allclose(out["lam"], single.lam, rtol=1e-5, atol=1e-8)
+    for r in range(1, MESH_RANKS):
+        np.testing.assert_array_equal(got[r]["solve14"]["lam"], out["lam"])
+    log(f"9b: (ε, δ) = (0.1, 0.1) solve at scale 14 on 2x2: "
+        f"{out['n_samples']} samples in {out['n_epochs']} epochs "
+        f"(converged={out['converged']}), {out['seconds']:.3f}s on 4 ranks "
+        f"sharing one H100 over gloo; launches {summed}; == single host "
+        f"(same samples and epochs, λ̂ rtol 1e-5)")
+    out = r0["stream"]
+    summed = rank_launches(got, "stream", launches)
+    for r in range(MESH_RANKS):
+        same_moments(got[r]["stream"]["moments"], got[r]["2x2"]["moments"],
+                     f"9b streamed rank {r}", bitwise=True)
+    log(f"9b: streamed upload of the written binary COO file "
+        f"(EdgeListReader, 65536-arc chunks) in {out['upload_s']:.3f}s; its "
+        f"batch ({out['seconds']:.3f}s) bitwise the eager upload's on every "
+        f"rank; launches {summed}")
+
+
+def phase9c(launches) -> None:
+    """A one-rank NCCL mesh (1 x 1) in this process, one batch at scale
+    14 against the single-host dense batch."""
+    g14 = graph(14)
+    src = np.arange(64, dtype=np.int32)
+    val = np.ones(64, bool)
+    host = build_executor(g14, plan(g14, approx_query(64), device=DEV),
+                          device=DEV)
+    ref = host.step(src, val)
+    del host
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = Mesh((1, 1), ("data", "model"), device="cuda")
+        ex = build_executor(g14, plan(g14, MESH_QUERY, mesh=mesh),
+                            mesh=mesh)
+        ex._context()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ex.step(src, val)  # the first batch: warm-up, timed apart
+        first_s = time.perf_counter() - t0
+        reset_counts()
+        t0 = time.perf_counter()
+        got = ex.step(src, val)
+        dt = time.perf_counter() - t0
+        phase = tally(launches, DENSE_PATH, "9c")
+        same_moments(got, ref, "9c", bitwise=True)
+        log(f"9c: one-rank NCCL mesh (1x1, backend {mesh.backend}): one "
+            f"64-source batch at scale 14 in {dt:.3f}s (the first "
+            f"{first_s:.3f}s), launches {phase}; bitwise the single-host "
+            f"dense batch")
+        del ex
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+
 def graph(scale: int):
     g, _ = rmat(scale, 16, seed=0, weighted=True, max_weight=100
                 ).remove_isolated()
@@ -1705,6 +2054,16 @@ def main() -> None:
     served_8c = phase8c(svc18, launches)
     log(f"phase 8 in {time.perf_counter() - t8:.1f}s, launches 8a "
         f"{served_8a}, 8b {served_8b}, 8c {served_8c}; the script in "
+        f"{time.perf_counter() - t_start:.1f}s")
+    del svc18
+    torch.cuda.empty_cache()
+
+    # 9. the distributed step
+    t9 = time.perf_counter()
+    phase9a(gen, errs)
+    phase9b(g12, lam, launches)
+    phase9c(launches)
+    log(f"phase 9 in {time.perf_counter() - t9:.1f}s; the script in "
         f"{time.perf_counter() - t_start:.1f}s")
 
     rows = [{"name": name, "route": "cuda", "source": k["source"],

@@ -1,7 +1,8 @@
 """repro_torch.bc — the betweenness-centrality solver facade of the port.
 
-One query → plan → executor surface, ported from ``repro.bc`` for one
-device and the dense, COO and CSR backends:
+One query → plan → executor surface, ported from ``repro.bc`` for the
+dense, COO and CSR backends on one device and for the distributed dense
+step on a mesh:
 
 * ``BCQuery`` — what the caller wants (exact/approx, ε/δ/top-k/rule, seed,
   sample cap, optional n_b and ``ExecutionConfig`` pins).
@@ -10,6 +11,9 @@ device and the dense, COO and CSR backends:
 * ``SingleHostExecutor`` — ``step`` / ``step_sum`` / ``step_segmented``
   on the card's Hopper kernels (or their plain versions on the CPU), and
   the CSR backend's ``occupancy_summary``.
+* ``MeshExecutor`` — the Theorem 5.1 moments step of betweenness on a
+  (pod, data, model) mesh of ``torch.distributed`` ranks
+  (``repro_torch.launch.mesh``).
 * ``solve`` — the exact sweep and the adaptive/uniform sampling epochs.
 
 Typical use::
@@ -25,15 +29,15 @@ The serving stack's fusion surface lives here too: ``plan_for_request``,
 ``BatchAssembler`` / ``FusedBatch`` / ``scatter`` and ``honest_converged``,
 and the refinement surface: ``ApproxCheckpoint``, ``checkpoint_from``,
 ``resume_approx`` and ``carry_checkpoint``. Every registered metric runs
-(``BCQuery(metric=...)``: betweenness, closeness, khop, components). Not
-ported yet: ``MeshExecutor`` (slice 6 of ROADMAP.md).
+(``BCQuery(metric=...)``: betweenness, closeness, khop, components).
 """
 from repro_torch.approx.driver import (ApproxResult, LambdaEstimator,
                                        choose_sample_batch, stopping_check)
 from repro_torch.approx.sampling import AdaptiveSampler, UniformSampler
 from repro_torch.bc.config import Backend, ExecutionConfig, as_backend
 from repro_torch.bc.executor import (BackendSpec, BatchExecutor,
-                                     SingleHostExecutor, backend_spec,
+                                     MeshExecutor, SingleHostExecutor,
+                                     backend_spec,
                                      build_executor, register_backend,
                                      registered_backends)
 from repro_torch.bc.fusion import (PACKS, BatchAssembler, FusedBatch,
@@ -54,7 +58,7 @@ __all__ = [
     "BackendSpec", "register_backend", "backend_spec", "registered_backends",
     "MetricSpec", "register_metric", "metric_spec", "registered_metrics",
     "METRICS", "fuse_group",
-    "BatchExecutor", "SingleHostExecutor", "build_executor",
+    "BatchExecutor", "SingleHostExecutor", "MeshExecutor", "build_executor",
     "plan", "solve", "honest_converged",
     "BatchAssembler", "FusedBatch", "scatter", "order_demand", "PACKS",
     "TIERS", "TIER_DEADLINE_S",

@@ -24,8 +24,10 @@ registered, and ``SingleHostExecutor`` for every registered metric: the
 sampled metrics through ``step``/``step_sum``/``step_segmented`` (a fused
 batch may mix metrics row-wise, ``metrics=``), the components fixed point
 through ``labels()``, and the CSR occupancy side channel
-(``occupancy_summary``) on the betweenness path. A mesh plan raises
-``NotImplementedError`` naming slice 6 of ROADMAP.md. On the CSR backend,
+(``occupancy_summary``) on the betweenness path; and ``MeshExecutor``,
+the distributed Theorem 5.1 moments step of betweenness on a
+(pod, data, model) mesh of ``torch.distributed`` ranks
+(``core.dist_bc``), for a mesh plan. On the CSR backend,
 as on COO, a slot's fused statistics stay bitwise those of its rows alone
 because the segment sums add each segment in arc order, whatever the
 batch's union frontier makes the bucket pick choose.
@@ -41,10 +43,11 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.bc.config import Backend, as_backend
-from repro_torch.bc.planner import _MESH_MSG, BCPlan, bucket_sizes
+from repro_torch.bc.planner import BCPlan, bucket_sizes
 from repro_torch.core.adjacency import (CsrAdj, coo_adj_from_graph,
                                         csr_adj_from_graph,
                                         dense_adj_from_graph)
+from repro_torch.core.dist_bc import MeshBCContext
 from repro_torch.core.mfbc import (metric_batch_moments,
                                    metric_batch_moments_segmented,
                                    mfbc_batch, mfbc_batch_moments,
@@ -52,6 +55,7 @@ from repro_torch.core.mfbc import (metric_batch_moments,
                                    mfbc_batch_moments_traced)
 from repro_torch.core.metrics import components_graph, components_labels
 from repro_torch.graphs.formats import Graph
+from repro_torch.launch.mesh import Mesh
 
 Moments = Tuple[np.ndarray, np.ndarray, np.ndarray]  # (S1, S2, n_reach)
 
@@ -399,17 +403,73 @@ class SingleHostExecutor(_ExecutorBase):
             np.float64)
 
 
+class MeshExecutor(_ExecutorBase):
+    """Distributed Theorem 5.1 moments step on a (pod, data, model) mesh.
+
+    Every rank of the mesh builds one and calls it with the same batches;
+    each call returns the same host arrays on every rank. ``mesh=None``
+    builds the mesh the plan chose (``plan.mesh_axes``) over the
+    initialized process group, on ``device``. All variants and buckets
+    share one lazily built ``MeshBCContext``: the padded, permuted
+    adjacency is uploaded once, and the kernels' split count is fixed
+    for every bucket (``MeshBCContext.for_batches``).
+    """
+
+    def __init__(self, g: Graph, plan: BCPlan, mesh=None, *, device="cuda"):
+        if mesh is None:
+            axes = plan.axes_dict()
+            if axes is None:
+                raise ValueError("plan has no mesh_axes and no mesh given")
+            mesh = Mesh(tuple(axes.values()), tuple(axes), device=device)
+        self.plan = plan
+        self.mesh = mesh
+        self._g = g
+        # Lazy context: an executor built for planning introspection never
+        # pads or uploads the adjacency.
+        self._ctx = None
+        # MeshBCContext's batch rounding (sources are sharded over
+        # pod×data), computed up front so callers can size sample batches
+        # before any device work happens.
+        sizes = mesh.axis_sizes
+        chunk = sizes.get("pod", 1) * sizes.get("data", 1)
+        self.n_b = -(-plan.n_b // chunk) * chunk
+        # Bucket set: the plan's power-of-two shapes, each rounded up to
+        # the mesh divisibility (dedup keeps them ascending).
+        rounded = [-(-b // chunk) * chunk
+                   for b in (plan.buckets or bucket_sizes(plan.n_b))]
+        rounded.append(self.n_b)
+        self.buckets = tuple(sorted({min(b, self.n_b) for b in rounded}))
+
+    def _context(self) -> MeshBCContext:
+        if self._ctx is None:
+            self._ctx = MeshBCContext(self._g, self.mesh,
+                                      iters=self.plan.iters
+                                      ).for_batches(self.n_b)
+        return self._ctx
+
+    def _moments(self, src, val) -> Moments:
+        return self._context().run_moments(src, val, nb=self.n_b)
+
+    def _sum(self, src, val) -> np.ndarray:
+        return self._context().run_sum(src, val, nb=self.n_b)
+
+    def _segmented(self, src, val, sid, n_seg: int) -> Moments:
+        return self._context().run_segmented(src, val, sid, n_seg,
+                                             nb=src.shape[0])
+
+
 def build_executor(g: Graph, plan: BCPlan, *, mesh=None,
                    device="cuda") -> BatchExecutor:
     """Instantiate the executor a ``BCPlan`` calls for, on ``device``.
 
-    A mesh plan (or an explicit ``mesh``) raises ``NotImplementedError``
-    naming slice 6 of ROADMAP.md.
+    A mesh plan (or an explicit ``mesh``) builds a ``MeshExecutor``, on
+    the mesh's device when one is given; a mesh plan on a backend with no
+    mesh step raises ``ValueError`` (a planner bug, never a fallback).
     """
     spec = backend_spec(plan.backend)
     if plan.placement == "mesh" or mesh is not None:
         if "mesh" not in spec.placements:
             raise ValueError(f"backend {spec.backend.value!r} has no mesh "
                              f"step (placements: {spec.placements})")
-        raise NotImplementedError(_MESH_MSG)
+        return MeshExecutor(g, plan, mesh=mesh, device=device)
     return SingleHostExecutor(g, plan, device=device)

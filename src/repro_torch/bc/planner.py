@@ -10,10 +10,11 @@ the same query, topology and calibration.
 
 Topology: where the reference counts jax devices, the port counts
 ``torch.cuda.device_count()`` when the plan is for the card and 1 when it
-is for the CPU. One device plans single-host; several plan a
-(pod, data, model) decomposition as the reference does, and such a plan
-(or an explicit ``mesh=``) raises ``NotImplementedError`` when it would
-run: the distributed step is slice 6 of ROADMAP.md. Predicted seconds
+is for the CPU. An explicit ``mesh`` (a ``launch.mesh.Mesh``, even 1×1)
+pins placement and axes to it; otherwise one device plans single-host and
+several plan a (pod, data, model) decomposition, as the reference does:
+c = min(best_replication, p^(1/3)) clamped to a divisor of p and the
+remaining p/c grid split near-square. Predicted seconds
 come from the reference's analytic constants unless the port's own
 calibration file exists (``spgemm.cost_model``); they are not H100 times.
 """
@@ -39,9 +40,6 @@ from repro_torch.spgemm.cost_model import (DEFAULT, Calibration, CostParams,
 
 _WORD = 4.0  # f32 device word
 BUCKET_FLOOR = 8  # smallest padded batch shape an executor serves
-_MESH_MSG = ("the distributed (mesh) step is not ported yet: it is slice 6 "
-             "of ROADMAP.md; plan and run on one device "
-             "(ExecutionConfig(placement='single_host'))")
 
 
 def device_count(device) -> int:
@@ -224,19 +222,18 @@ class BCPlanner:
              n_devices: Optional[int] = None, device="cuda") -> BCPlan:
         """Resolve ``query`` against the device topology.
 
-        ``mesh``: an explicit mesh; raises ``NotImplementedError`` (the
-        distributed step is slice 6 of ROADMAP.md).
+        ``mesh``: an explicit ``launch.mesh.Mesh`` — pins placement (and
+        axes) to it.
         ``n_devices``: topology override for planning without touching
         device state (tests, dry runs). Default: ``device_count(device)``.
         """
-        if mesh is not None:
-            raise NotImplementedError(_MESH_MSG)
-        if n_devices is None:
+        if n_devices is None and mesh is None:
             n_devices = device_count(device)
         n, m = g.n, g.m
         pins = query.execution or ExecutionConfig()
         spec = metric_spec(query.metric)
-        placement, axes, notes = self._placement(n, m, query, n_devices)
+        placement, axes, notes = self._placement(n, m, query, mesh,
+                                                 n_devices)
         p = 1
         if axes is not None:
             for _, s in axes:
@@ -352,14 +349,15 @@ class BCPlanner:
             execution=execution, notes=tuple(notes))
 
     # ------------------------------------------------------------------
-    def _placement(self, n: int, m: int, query, n_devices: int):
+    def _placement(self, n: int, m: int, query, mesh,
+                   n_devices: Optional[int]):
         notes: List[str] = []
         pins = query.execution or ExecutionConfig()
         # Only betweenness has a distributed (Theorem 5.1) moments step;
         # sibling metrics run their sweeps single-host — never silently
         # when a topology was visible.
         if query.metric != "betweenness":
-            if pins.placement == "mesh":
+            if mesh is not None or pins.placement == "mesh":
                 raise ValueError(
                     f"mesh placement is betweenness-only; metric "
                     f"{query.metric!r} has no distributed step")
@@ -369,6 +367,8 @@ class BCPlanner:
                         f"{n_devices} visible devices")
                 notes.append(note)
             return "single_host", None, notes
+        if mesh is not None:
+            return "mesh", tuple(mesh.axis_sizes.items()), notes
         if pins.placement == "single_host":
             return "single_host", None, notes
         # A pinned COO/CSR backend has no distributed step — stay on one

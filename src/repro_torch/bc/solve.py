@@ -14,6 +14,10 @@ protocol:
   epoch boundaries with a geometrically split failure budget, stop early
   on top-k CI separation.
 
+On a mesh, every rank runs the same driver: the sampler is seeded alike
+and each batch's statistics are the same on every rank, so every rank
+takes the same stopping decisions.
+
 The identity contract: a dense or COO plan passes through ``solve`` by
 identity (``solve(..., plan=pl).plan is pl``); a CSR plan comes back as a
 copy that carries the executor's frontier-occupancy trace
@@ -105,7 +109,10 @@ def solve(g: Graph, query: Optional[BCQuery] = None, *, mesh=None,
     Args:
       g: host COO graph.
       query: what to compute (default: exact sweep).
-      mesh: an explicit mesh; raises ``NotImplementedError`` (slice 6).
+      mesh: an explicit ``launch.mesh.Mesh``: the distributed step. Every
+        rank of the mesh calls ``solve`` with the same arguments and gets
+        the same result (a mesh plan with no mesh builds one from
+        ``plan.mesh_axes`` over the initialized process group).
       plan: pre-computed ``BCPlan`` (skips planning; ``plan``).
       executor: pre-built executor (reused across requests).
       sources: exact mode only — restrict the sweep to these sources.

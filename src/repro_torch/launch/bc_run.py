@@ -33,15 +33,29 @@ sweep). ``--verify`` checks each against its own host oracle
 (``closeness_ref``, ``khop_ref``, ``cc_ref``); in approximate mode, for a
 metric other than betweenness, the top-k precision only.
 
-``--mesh`` and ``--ckpt-dir`` of ``repro.launch.bc_run`` exit naming the
-slice that brings them.
+``--mesh DxM|PxDxM`` pins placement to the distributed Theorem 5.1
+moments step on a (data, model) or (pod, data, model) mesh of
+``torch.distributed`` ranks; as in the reference it requires ``--approx``.
+Every rank of a ``torchrun`` job runs the command, and rank 0 prints; the
+axis-size product must equal the number of ranks. ``--dist-backend
+nccl|gloo`` names the process group's backend (no default): NCCL for one
+card a rank, gloo for ranks that share a card or run on the CPU::
+
+  torchrun --nproc-per-node 4 -m repro_torch.launch.bc_run --mesh 2x2 \
+      --approx 0.1,0.1 --dist-backend gloo --device cpu
+
+``--ckpt-dir`` of ``repro.launch.bc_run`` exits naming the slice that
+brings it.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import time
 
 import numpy as np
+import torch.distributed as dist
 
 from repro_torch import resolve_device
 from repro_torch.bc import BCQuery, ExecutionConfig
@@ -51,9 +65,9 @@ from repro_torch.core.brandes_ref import (brandes_bc, cc_ref, closeness_ref,
                                           khop_ref)
 from repro_torch.core.metrics import METRICS
 from repro_torch.graphs.generators import from_spec
+from repro_torch.launch.mesh import mesh_from_spec, parse_mesh_spec
 
-_UNPORTED = {"mesh": "the distributed step is slice 6",
-             "ckpt_dir": "per-batch checkpoints are slice 7"}
+_UNPORTED = {"ckpt_dir": "per-batch checkpoints are slice 7"}
 # --verify oracles per metric: (name printed, oracle(g, hops))
 _ORACLES = {"betweenness": ("the Brandes", lambda g, hops: brandes_bc(g)),
             "closeness": ("closeness_ref", lambda g, hops: closeness_ref(g)),
@@ -127,7 +141,12 @@ def main(argv=None):
     ap.add_argument("--rule", default="bernstein",
                     choices=["bernstein", "normal"])
     ap.add_argument("--max-samples", type=int, default=0)
-    ap.add_argument("--mesh", default="")
+    ap.add_argument("--mesh", default="",
+                    help="DxM or PxDxM axis sizes — pin placement to the "
+                         "distributed moments step (every rank of a "
+                         "torchrun job runs it; needs --approx)")
+    ap.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
+                    help="process-group backend of --mesh")
     ap.add_argument("--metric", default="betweenness", choices=METRICS,
                     help="graph metric to solve (MetricSpec registry)")
     ap.add_argument("--hops", type=int, default=0,
@@ -142,11 +161,53 @@ def main(argv=None):
         resolve_device(args.device)
     except RuntimeError as e:
         raise SystemExit(f"[bc] {e}")
+    if not args.mesh:
+        return _run(args, None)
+    mesh = _init_mesh(args)
+    quiet = (contextlib.redirect_stdout(io.StringIO()) if mesh.rank
+             else contextlib.nullcontext())
+    try:
+        with quiet:
+            return _run(args, mesh)
+    finally:
+        dist.destroy_process_group()
 
+
+def _init_mesh(args):
+    """Join the torchrun job's process group and build ``--mesh``."""
+    if not args.approx:
+        raise SystemExit("[bc] --mesh requires --approx (the exact mesh "
+                         "sweep is repro_torch.bc.solve(..., mesh=))")
+    if args.dist_backend is None:
+        raise SystemExit("[bc] --mesh needs --dist-backend nccl|gloo: NCCL "
+                         "for one card a rank, gloo for ranks that share a "
+                         "card or run on the CPU")
+    try:
+        parse_mesh_spec(args.mesh)
+    except ValueError as e:
+        raise SystemExit(f"[bc] --mesh: {e}")
+    try:
+        dist.init_process_group(args.dist_backend)
+    except (ValueError, RuntimeError) as e:
+        raise SystemExit(f"[bc] --mesh runs under torchrun (or with "
+                         f"MASTER_ADDR, MASTER_PORT, RANK and WORLD_SIZE "
+                         f"set): {e}")
+    try:
+        mesh = mesh_from_spec(args.mesh, device=args.device)
+    except ValueError as e:
+        dist.destroy_process_group()
+        raise SystemExit(f"[bc] --mesh: {e}")
+    return mesh
+
+
+def _run(args, mesh):
     g = from_spec(args.graph, scale=args.scale, degree=args.degree,
                   weighted=args.weighted, seed=args.seed)
     g, _ = g.remove_isolated()
     print(f"[bc] graph {g.name}: n={g.n} m={g.m} device={args.device}")
+    if mesh is not None:
+        print(f"[bc] mesh {mesh.axis_sizes} over {dist.get_world_size()} "
+              f"ranks, backend {mesh.backend}, rank 0 on {mesh.device}")
     execution = ExecutionConfig(
         backend=None if args.backend == "auto" else args.backend)
     kw = dict(mode="exact")
@@ -163,8 +224,15 @@ def main(argv=None):
                         **kw)
     except ValueError as e:  # e.g. --metric khop without --hops
         raise SystemExit(f"[bc] bad query: {e}")
-    pl = bc_plan(g, query, n_devices=1, device=args.device)
+    try:
+        pl = bc_plan(g, query, mesh=mesh,
+                     n_devices=None if mesh is not None else 1,
+                     device=args.device)
+    except ValueError as e:  # e.g. --mesh with --backend coo
+        raise SystemExit(f"[bc] cannot plan this query: {e}")
     print(f"[bc] {pl.summary()} execution={pl.execution.describe()}")
+    for note in pl.notes:
+        print(f"[bc] note: {note}")
 
     if args.approx:
         def progress(epoch, tau, max_hw):
@@ -174,7 +242,7 @@ def main(argv=None):
             print(f"[bc] batch {b + 1}/{n_batches}")
 
     t0 = time.time()
-    out = bc_solve(g, query, plan=pl, progress_cb=progress,
+    out = bc_solve(g, query, mesh=mesh, plan=pl, progress_cb=progress,
                    device=args.device)
     dt = time.time() - t0
     if out.plan.occupancy is not None:

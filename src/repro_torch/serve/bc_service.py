@@ -57,8 +57,9 @@ pre-fusion behavior).
 A copy of ``repro.serve.bc_service`` over the port. It differs in
 interface only: ``device`` ("cuda" by default, raising without a card, or
 "cpu") is where every executor of the service runs; ``mesh=`` raises
-``NotImplementedError`` (the distributed step is slice 6 of ROADMAP.md);
-the deprecated ``backend=`` keyword is gone (pass ``execution=``). The
+``NotImplementedError``: on a multi-process mesh every rank must run rank
+0's ticks, a protocol of its own (slice 6b of ROADMAP.md; ``solve(...,
+mesh=)`` runs on a mesh today); the deprecated ``backend=`` keyword is gone (pass ``execution=``). The
 module imports only public ``repro_torch.bc`` names, which
 ``tests/test_torch_imports.py`` checks.
 """
@@ -82,8 +83,10 @@ from repro_torch.bc import plan as bc_plan
 from repro_torch.bc import stopping_check
 from repro_torch.graphs.formats import Graph, graph_digest
 
-_MESH_MSG = ("BCService(mesh=...): the distributed (mesh) step is not "
-             "ported yet: it is slice 6 of ROADMAP.md; serve on one device")
+_MESH_MSG = ("BCService(mesh=...): serving on a multi-process mesh needs "
+             "follower ranks that run rank 0's ticks, slice 6b of "
+             "ROADMAP.md; serve on one device, or run repro_torch.bc."
+             "solve(..., mesh=) on every rank")
 
 
 @dataclasses.dataclass
@@ -232,8 +235,8 @@ class BCService:
 
     The ``repro_torch.bc`` planner places each graph on one ``device``
     ("cuda", the default, or "cpu"); every executor of the service is
-    built there. ``mesh=`` raises ``NotImplementedError``: the
-    distributed moments step is slice 6 of ROADMAP.md. ``iters`` is
+    built there. ``mesh=`` raises ``NotImplementedError``: serving on a
+    mesh needs follower ranks (slice 6b of ROADMAP.md). ``iters`` is
     recorded in the plans, as in the reference. Per-graph capacity plans
     are inspectable via ``plan_for(name)``, per-request plans via the
     ``plan`` field of each ``BCResponse``.

@@ -8,18 +8,20 @@
   halfwidths within rtol 1e-5.
 * ``resume_approx`` continues a checkpoint the reference wrote.
 * Dense plans pass through ``solve`` by identity.
-* COO and unpinned (CSR) plans run; what the port does not run yet raises
-  ``NotImplementedError`` naming its slice of ROADMAP.md; the port never
-  reads the reference's calibration.
+* COO, unpinned (CSR) and mesh plans run; what the port does not run yet
+  names its slice of ROADMAP.md; the port never reads the reference's
+  calibration.
 * ``launch.bc_run --approx`` runs on the CPU and exits on a host without a
   card with the ``--device cpu`` hint.
 """
 import contextlib
 import json
+import socket
 
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 import repro.bc as jbc
 import repro.approx.sampling as jsam
@@ -27,6 +29,7 @@ from repro.core import brandes_bc, cc_ref, closeness_ref, khop_ref
 from repro.graphs.generators import rmat
 import repro_torch.bc as tbc
 from repro_torch.launch import bc_run
+from repro_torch.launch.mesh import Mesh
 from repro_torch.spgemm import cost_model as tcost
 from repro_torch.spgemm.autotune import autotune, choose_bc_regime
 
@@ -295,15 +298,26 @@ def test_unported_paths_name_their_slice():
     np.testing.assert_allclose(tbc.solve(g, tbc.BCQuery(), plan=coo,
                                          device="cpu").lam,
                                exact.lam, rtol=1e-5, atol=1e-8)
-    mesh = planner.plan(g, tbc.BCQuery(n_b=16, execution=tbc.ExecutionConfig(
-        backend="dense")), n_devices=8)
+    # slice 6 is ported: a mesh plan runs on a mesh of torch.distributed
+    # ranks, and says what it needs when there is none of its size
+    dense16 = tbc.BCQuery(n_b=16, execution=tbc.ExecutionConfig(
+        backend="dense"))
+    mesh = planner.plan(g, dense16, n_devices=8)
     assert mesh.placement == "mesh"
-    with pytest.raises(NotImplementedError, match="slice 6"):
+    with pytest.raises(RuntimeError, match="init_process_group"):
         tbc.build_executor(g, mesh, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        tbc.plan(g, tbc.BCQuery(), mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        tbc.solve(g, tbc.BCQuery(), mesh=object(), device="cpu")
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        with pytest.raises(ValueError, match="needs 8 ranks"):
+            tbc.build_executor(g, mesh, device="cpu")
+        one = Mesh((1, 1), ("data", "model"), device="cpu")
+        on_mesh = tbc.solve(g, dense16, mesh=one, device="cpu")
+        assert on_mesh.plan.placement == "mesh"
+        np.testing.assert_array_equal(
+            on_mesh.lam, tbc.solve(g, dense16, device="cpu").lam)
+    finally:
+        dist.destroy_process_group()
     # slice 4 is ported: every metric runs, against its oracle
     dense = tbc.BCQuery(n_b=16, execution=tbc.ExecutionConfig(
         backend="dense"))
@@ -369,16 +383,34 @@ def test_bc_run_without_a_card_names_the_cpu(monkeypatch):
     # the analytic regime routes scale-8 R-MAT to CSR, which runs since
     # slice 3 (None: no slice to name)
     (["--backend", "auto", "--nb", "0", "--scale", "8"], None),
-    (["--mesh", "2x2"], "slice 6"),
+    # slice 6 is ported: a one-rank mesh, as one rank of torchrun sees it
+    (["--mesh", "1x1", "--approx", "0.1,0.1", "--dist-backend", "gloo"],
+     None),
     # slice 4 is ported: the metric runs and passes its own oracle
     (["--metric", "closeness"], None),
     (["--ckpt-dir", "ck"], "slice 7"),
 ])
-def test_bc_run_unported_options_name_their_slice(argv, slice_, capsys):
+def test_bc_run_unported_options_name_their_slice(argv, slice_, capsys,
+                                                  monkeypatch):
     argv = ["--scale", "5", "--device", "cpu"] + argv
     if slice_ is not None:
         with pytest.raises(SystemExit, match=slice_):
             bc_run.main(argv)
+        return
+    if "--mesh" in argv:
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        for key, val in (("MASTER_ADDR", "127.0.0.1"),
+                         ("MASTER_PORT", str(port)), ("RANK", "0"),
+                         ("WORLD_SIZE", "1")):
+            monkeypatch.setenv(key, val)
+        res = bc_run.main(argv + ["--verify"])
+        out = capsys.readouterr().out
+        assert "BCPlan[approx] mesh{'data': 1, 'model': 1} backend=dense" \
+            in out
+        assert "vs Brandes oracle" in out and "WARNING" not in out
+        assert res.n_samples > 0 and not dist.is_initialized()
         return
     lam = bc_run.main(argv + ["--verify"])
     out = capsys.readouterr().out

@@ -58,6 +58,9 @@ _MODULES = {
     "repro_torch.graphs.formats", "repro_torch.serve",
     "repro_torch.serve.cache", "repro_torch.serve.bc_service",
     "repro_torch.serve.gateway", "repro_torch.launch.bc_serve",
+    # slice 6: the distributed step and the out-of-core ingest
+    "repro_torch.launch.mesh", "repro_torch.spgemm.semiring",
+    "repro_torch.spgemm.dist", "repro_torch.core.dist_bc",
 }
 
 _BANNED = re.compile(r"^\s*(?:import|from)\s+(?:jax|repro)\b", re.MULTILINE)

@@ -13,8 +13,9 @@ reference's ``repro.serve.BCService``.
   betweenness with the same request alone within rtol 1e-5, the port
   compares it bitwise: its ``step`` and ``step_segmented`` add a batch's
   rows in the same order.
-* The interface differences: ``mesh=`` raises naming slice 6, there is no
-  ``backend=`` keyword, and the default device is the card.
+* The interface differences: ``mesh=`` raises naming slice 6b (serving on
+  a multi-process mesh), there is no ``backend=`` keyword, and the default
+  device is the card.
 """
 import json
 
@@ -106,8 +107,12 @@ def test_service_matches_reference(pack, budget):
 # ----------------------------------------------------- interface differences
 def test_mesh_names_its_slice():
     """The reference serves epochs through the distributed step on a
-    mesh; the port raises, naming slice 6, at construction."""
-    with pytest.raises(NotImplementedError, match="slice 6"):
+    mesh. The port runs the step (``solve(..., mesh=)``), but serving on
+    a multi-process mesh needs follower ranks that run rank 0's ticks: the
+    service raises at construction, naming that later slice."""
+    with pytest.raises(NotImplementedError,
+                       match="follower ranks that run rank 0's ticks, "
+                             "slice 6b of ROADMAP.md"):
         _svc({"web": _graph()}, mesh=object())
 
 
