@@ -134,8 +134,9 @@ order; any failed check raises and the script exits non-zero:
       bound;
    b. four spawned ranks sharing the card over gloo (gloo stages the CUDA
       tensors through the host; NCCL refuses two ranks on one card): on
-      each of (2, 2) and (2, 1, 2) one 64-source scale-14 batch through
-      ``MeshExecutor`` against the single-host dense batch (``n_reach``
+      each of (2, 2) and (2, 1, 2) a 64-source scale-14 batch through
+      ``MeshExecutor`` (the mean seconds of ``MESH_REPEATS`` after the
+      first) against the single-host dense batch (``n_reach``
       bitwise, S1/S2 rtol 1e-5, atol 1e-8) and identical on every rank,
       with each rank's bytes per collective kind beside
       ``model_mesh_bytes``; exact λ of scale 12 on (2, 2) against phase
@@ -143,25 +144,46 @@ order; any failed check raises and the script exits non-zero:
       against the single-host ``solve`` (the same samples and epochs, λ̂
       rtol 1e-5); the streamed upload of a written binary COO file
       (``EdgeListReader`` → ``build_sharded_adjacency``), its batch
-      bitwise the eager upload's. Times are of 4 ranks sharing one card,
-      not of a multi-card mesh;
+      bitwise the eager upload's; then serving on the (2, 2) mesh
+      (``BCService(mesh=, checkpoints=True)``, built on every rank): rank
+      0 serves scale 14 behind the HTTP gateway — betweenness ε 0.1
+      interactive and ε 0.1 normal posted before its worker starts (one
+      fused tick), the identical repeat (a byte-identical cache hit), ε
+      0.07 (a refine) — while ranks 1–3 ``follow()`` until its
+      ``close()``; every answer has the samples, epochs and convergence of
+      the same requests on a single-host dense service on the card, λ̂ and
+      the halfwidths within rtol 1e-5, every follower ran each call rank 0
+      mirrored, with each request's submit→done latency and the control
+      broadcast's ms a call. Times are of 4 ranks sharing one card, not of
+      a multi-card mesh: ``tools/torch_mesh_cards.py`` runs this phase
+      over NCCL on four cards, one a rank;
    c. a one-rank NCCL mesh (1 × 1) in this process: one scale-14 batch
-      bitwise the single-host dense batch.
+      bitwise the single-host dense batch, and a ``BCService`` on it
+      serving betweenness ε 0.1 bitwise the single-host dense service.
+10. a resumable run: ``launch.bc_run`` exact at scale 12 (phase 3's graph)
+    on dense, n_b 64, ``--ckpt-dir`` under ``build/``: an uninterrupted
+    run, then a run killed after saving global batch 20 and run again, so
+    that it resumes at batch 21; its λ equals phase 3's (rtol 1e-5, atol
+    1e-8) and the uninterrupted run's (rtol 1e-12). The runs' seconds and
+    a save's ms a batch.
 
 Each main-path run (phases 3, 4, 5a, 5b on the dense kernels, 6c and 6d
 on the sparse relax, every run of 7a, 7c and 7d on its backend's
 kernels, the served requests of 8a on the dense kernels, 8b and 8c on
-the sparse relax, and every mesh run of 9b on every rank and 9c on the
-dense kernels) starts with the launch counts at 0 and fails if a kernel
-of its path did not launch in it. The line before the last is one
-JSON object with each kernel's launches (summed over those runs, and over
-the ranks), error, times and bound; the last line is
+the sparse relax, every mesh run of 9b on every rank, 9c's batch and
+service and 10's resumed run on the dense kernels) starts with the launch
+counts at 0 and fails if a kernel of its path did not launch in it. The
+line before the last is one JSON object with each kernel's launches
+(summed over those runs, and over the ranks), error, times and bound; the
+last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import datetime
+import io
 import json
 import multiprocessing
 import os
@@ -216,13 +238,14 @@ from repro_torch.kernels.segment_relax import (LONG_RUN,  # noqa: E402
 from repro_torch.kernels.tropical_mm import (BM, BN,  # noqa: E402
                                              multpath_matmul_cuda,
                                              pick_splits, sm_count)
-from repro_torch.launch import calibrate  # noqa: E402
+from repro_torch.launch import bc_run, calibrate  # noqa: E402
 from repro_torch.serve import (BCGateway, BCService,  # noqa: E402
                                GatewayConfig, start_gateway)
 from repro_torch.serve.bc_service import BCRequest  # noqa: E402
 from repro_torch.serve.gateway import (GatewayHTTPServer,  # noqa: E402
                                        GatewayServer)
 from repro_torch.spgemm.cost_model import load_calibration  # noqa: E402
+from repro_torch.train import checkpoint as ckpt_lib  # noqa: E402
 
 INF = float("inf")
 DEV = torch.device("cuda")
@@ -1511,6 +1534,7 @@ def phase8c(svc, launches) -> dict:
 # -- phase 9: the distributed step -------------------------------------------
 
 MESH_RANKS = 4  # phase 9b's ranks, all on the one card, over gloo
+MESH_REPEATS = 5  # 9b's timed batches per mesh, after the first
 MESH_CASES = {"2x2": ((2, 2), ("data", "model")),
               "2x1x2": ((2, 1, 2), ("pod", "data", "model"))}
 # the local products of those meshes at scale 14 (n = 12536), n_b 64
@@ -1562,10 +1586,13 @@ def _counts() -> dict:
 
 
 def mesh_rank(rank: int, store: str, results, payload: dict) -> None:
-    """One rank of phase 9b: every case on both meshes, on the card, over
-    gloo. Puts (rank, {case: results}) on ``results``, or a traceback."""
+    """One rank of phase 9b: every case on both meshes, on the card (the
+    card ``LOCAL_RANK`` names when there are several), over
+    ``payload["backend"]``. Puts (rank, {case: results}) on ``results``,
+    or a traceback."""
     try:
-        dist.init_process_group("gloo", init_method=f"file://{store}",
+        dist.init_process_group(payload["backend"],
+                                init_method=f"file://{store}",
                                 rank=rank, world_size=MESH_RANKS,
                                 timeout=datetime.timedelta(
                                     seconds=RANK_TIMEOUT_S))
@@ -1588,12 +1615,17 @@ def mesh_rank(rank: int, store: str, results, payload: dict) -> None:
             first_s = time.perf_counter() - t0
             mesh.reset_counts()
             reset_counts()
-            t0 = time.perf_counter()
-            moments = ex.step(src, val)
+            batch_s = []
+            for _ in range(MESH_REPEATS):
+                t0 = time.perf_counter()
+                moments = ex.step(src, val)
+                batch_s.append(time.perf_counter() - t0)
             out[key] = dict(moments=moments, upload_s=upload_s,
-                            first_s=first_s,
-                            seconds=time.perf_counter() - t0,
-                            bytes=dict(mesh.comm_bytes), sweeps=ctx.sweeps,
+                            first_s=first_s, batch_s=batch_s,
+                            seconds=sum(batch_s) / MESH_REPEATS,
+                            bytes={k: v // MESH_REPEATS
+                                   for k, v in mesh.comm_bytes.items()},
+                            sweeps=ctx.sweeps,
                             n_pad=ctx.n_pad, splits=ctx.splits,
                             launches=_counts())
             del ex, ctx
@@ -1627,11 +1659,103 @@ def mesh_rank(rank: int, store: str, results, payload: dict) -> None:
         out["stream"] = dict(moments=moments, upload_s=upload_s,
                              seconds=time.perf_counter() - t0,
                              launches=_counts())
+        out["serve"] = serve_rank(mesh, g14)
         dist.destroy_process_group()
         results.put((rank, out))
     except BaseException:
         results.put((rank, traceback.format_exc()))
         raise
+
+
+SERVE_NAME = "rmat-s14-w"
+# 9b's requests: a pair posted before the gateway's worker starts (one
+# fused tick), then the identical repeat (a cache hit) and a tighter ε (a
+# refine of the first answer's checkpoint).
+SERVE_PAIR = ({"graph": SERVE_NAME, "eps": 0.1, "priority": "interactive"},
+              {"graph": SERVE_NAME, "eps": 0.1})
+SERVE_TIGHT = {**SERVE_PAIR[0], "eps": 0.07}
+
+
+def serve_http(svc) -> dict:
+    """Rank 0 of 9b: the requests through an HTTP gateway over the mesh
+    service. The wire documents of the pair and the refine, the hit."""
+    gw = BCGateway(svc, GatewayConfig(horizon_s=1e9))
+    srv = listener(gw)
+    try:
+        rids = [post(srv, doc, (202,), "9b serve")[1]["rid"]
+                for doc in SERVE_PAIR]
+        gw.start()  # both queued: admitted in one tick, fused
+        done = [poll_done(srv, rid, "9b serve") for rid in rids]
+        t0 = time.perf_counter()
+        _, hit, _ = post(srv, SERVE_PAIR[0], (200,), "9b: the repeat")
+        hit_ms = 1e3 * (time.perf_counter() - t0)
+        if not hit["cached"] or json.dumps(hit["result"]) != json.dumps(
+                done[0]["result"]):
+            raise AssertionError("9b: the cache hit is not the "
+                                 "byte-identical payload")
+        _, part, _ = post(srv, SERVE_TIGHT, (202,), "9b: the tighter one")
+        if not (part["status"] == "partial" and part.get("refining")):
+            raise AssertionError(f"9b: the tighter request is not a "
+                                 f"refine: {part}")
+        refined = poll_done(srv, part["rid"], "9b serve")
+        if not refined["refined"]:
+            raise AssertionError("9b: the tighter request did not end "
+                                 "refined")
+        _, m, _ = http("GET", f"{srv.url}/v1/metrics")
+        if m["totals"]["errors"]:
+            raise AssertionError(f"9b: errors counted: {m['totals']}")
+    finally:
+        srv.close()  # re-raises what stopped the worker, if anything did
+    return dict(docs=done + [refined], hit_ms=hit_ms)
+
+
+def serve_rank(mesh, g) -> dict:
+    """9b's serving case on one rank: ``BCService(mesh=)`` built on every
+    rank; rank 0 serves, the others follow until its ``close()``. The
+    launches are counted on every rank from construction to the end."""
+    svc = BCService({SERVE_NAME: g}, mesh=mesh, checkpoints=True,
+                    ctrl_timeout=datetime.timedelta(seconds=RANK_TIMEOUT_S))
+    reset_counts()
+    t0 = time.perf_counter()
+    if mesh.rank == 0:
+        try:
+            out = serve_http(svc)
+        finally:
+            svc.close()
+        out.update(mirrored=svc.mirrored, mirror_s=svc.mirror_seconds)
+    else:
+        out = dict(followed=svc.follow())
+    out.update(seconds=time.perf_counter() - t0, launches=_counts())
+    return out
+
+
+def serve_inline(svc) -> list:
+    """9b's requests through a gateway drained inline on this thread: the
+    status documents of the pair and the refine (the same rids as rank
+    0's)."""
+    gw = BCGateway(svc, GatewayConfig(horizon_s=1e9))
+    rids = [gw.submit(dict(doc))["rid"] for doc in SERVE_PAIR]
+    gw.drain()
+    if gw.submit(dict(SERVE_PAIR[0]))["http_status"] != 200:
+        raise AssertionError("9b reference: the repeat is not a hit")
+    rids.append(gw.submit(dict(SERVE_TIGHT))["rid"])
+    gw.drain()
+    return [gw.get(rid) for rid in rids]
+
+
+def same_served(got: list, want: list, label: str) -> None:
+    """Served answers of two services: the same samples, epochs and
+    convergence; λ̂ and the halfwidths within rtol 1e-5."""
+    for a, b in zip(got, want):
+        ra, rb = a["result"], b["result"]
+        keys = ("n_samples", "n_epochs", "converged")
+        if [ra[k] for k in keys] != [rb[k] for k in keys]:
+            raise AssertionError(f"{label} rid {a['rid']}: "
+                                 f"{[ra[k] for k in keys]} vs "
+                                 f"{[rb[k] for k in keys]}")
+        for k in ("lam", "halfwidth"):
+            np.testing.assert_allclose(ra[k], rb[k], rtol=1e-5,
+                                       err_msg=f"{label} rid {a['rid']} {k}")
 
 
 def run_ranks(payload: dict, tmp: str) -> dict:
@@ -1691,13 +1815,19 @@ def same_moments(got, want, label: str, bitwise: bool) -> None:
                                   err_msg=f"{label} n_reach")
 
 
-def mesh_bytes_line(key: str, out: dict) -> str:
-    """Counted bytes per kind of one batch on one rank beside the model."""
+def model_bytes(key: str, out: dict) -> float:
+    """``model_mesh_bytes`` of one rank's batch on mesh ``key``."""
     shape, names = MESH_CASES[key]
     n_mp, n_cp, _ = out["sweeps"]
+    return model_mesh_bytes(out["n_pad"], MESH_QUERY.n_b, (n_mp + n_cp) / 2,
+                            dict(zip(names, shape)))
+
+
+def mesh_bytes_line(key: str, out: dict) -> str:
+    """Counted bytes per kind of one batch on one rank beside the model."""
+    n_mp, n_cp, _ = out["sweeps"]
     b = out["bytes"]
-    model = model_mesh_bytes(out["n_pad"], MESH_QUERY.n_b,
-                             (n_mp + n_cp) / 2, dict(zip(names, shape)))
+    model = model_bytes(key, out)
     relax = b["gather"] + b["extremum"] + b["tie_sum"]
     kinds = ", ".join(f"{k} {v / 1e6:.3f} MB" for k, v in b.items())
     return (f"{kinds}; relaxes mp {n_mp} cp {n_cp}, whose collectives "
@@ -1705,9 +1835,11 @@ def mesh_bytes_line(key: str, out: dict) -> str:
             f"MB: ratio {relax / model:.3f}")
 
 
-def phase9b(g12, lam12, launches) -> None:
-    """Four ranks sharing the card over gloo at scale 14 (and exact λ at
-    scale 12), against the single-host dense path on the card."""
+def phase9b(g12, lam12, launches, backend: str = "gloo") -> dict:
+    """Four ranks at scale 14 (and exact λ at scale 12) over ``backend``,
+    against the single-host dense path on the card: sharing the one card
+    over gloo here, one card a rank over NCCL in
+    ``tools/torch_mesh_cards.py``. Returns the numbers by case."""
     t0 = time.perf_counter()
     g14 = graph(14)
     src = np.arange(64, dtype=np.int32)
@@ -1719,6 +1851,9 @@ def phase9b(g12, lam12, launches) -> None:
     single = solve(g14, dataclasses.replace(MESH_QUERY, execution=(
         ExecutionConfig(backend="dense", placement="single_host"))),
         device=DEV).approx
+    served_host = serve_inline(BCService(
+        {SERVE_NAME: g14}, execution=ExecutionConfig(backend="dense"),
+        checkpoints=True, device=DEV))
     torch.cuda.empty_cache()
     t_ref = time.perf_counter() - t0
     build = os.path.join(ROOT, "build")
@@ -1726,14 +1861,19 @@ def phase9b(g12, lam12, launches) -> None:
     with tempfile.TemporaryDirectory(dir=build) as tmp:
         path = write_binary_coo(os.path.join(tmp, "rmat14.rcoo"), g14)
         t0 = time.perf_counter()
-        got = run_ranks(dict(g12=g12, g14=g14, path=path,
+        got = run_ranks(dict(g12=g12, g14=g14, path=path, backend=backend,
                              spawned=time.time()), tmp)
         wall = time.perf_counter() - t0
     r0 = got[0]
-    log(f"9b: single-host references in {t_ref:.1f}s; {MESH_RANKS} ranks "
-        f"over gloo on {r0['device']} (all on one card) answered in "
-        f"{wall:.1f}s, of which spawn, imports and mesh groups "
+    cards = sorted({out["device"] for out in got.values()})
+    where = (f"{MESH_RANKS} ranks sharing one H100 over {backend}"
+             if len(cards) == 1 else
+             f"{MESH_RANKS} ranks over {backend}, one H100 a rank")
+    log(f"9b: single-host references in {t_ref:.1f}s; {where} "
+        f"({', '.join(cards)}) answered in {wall:.1f}s, of which spawn, "
+        f"imports and mesh groups "
         f"{max(out['setup_s'] for out in got.values()):.1f}s")
+    report = {"backend": backend, "cards": cards}
     for key in MESH_CASES:
         out = r0[key]
         summed = rank_launches(got, key, launches)
@@ -1741,8 +1881,9 @@ def phase9b(g12, lam12, launches) -> None:
         for r in range(1, MESH_RANKS):
             same_moments(got[r][key]["moments"], out["moments"],
                          f"9b {key} rank {r}", bitwise=True)
-        log(f"9b {key}: one 64-source batch at scale 14 in "
-            f"{out['seconds']:.3f}s on 4 ranks sharing one H100 over gloo "
+        log(f"9b {key}: a 64-source batch at scale 14 in "
+            f"{out['seconds']:.4f}s (mean of {MESH_REPEATS}: "
+            f"{', '.join(f'{t:.4f}' for t in out['batch_s'])}) on {where} "
             f"(the first {out['first_s']:.3f}s; upload "
             f"{out['upload_s']:.3f}s; S={out['splits']}); "
             f"launches {summed}; == the single-host batch (n_reach bitwise, "
@@ -1750,14 +1891,20 @@ def phase9b(g12, lam12, launches) -> None:
         for r in range(MESH_RANKS):
             log(f"9b {key} rank {r} bytes per batch: "
                 f"{mesh_bytes_line(key, got[r][key])}")
+        report[key] = dict(seconds=out["seconds"], first_s=out["first_s"],
+                           batch_s=out["batch_s"],
+                           bytes=[got[r][key]["bytes"]
+                                  for r in range(MESH_RANKS)],
+                           model_bytes=model_bytes(key, out))
     out = r0["exact12"]
     summed = rank_launches(got, "exact12", launches)
     np.testing.assert_allclose(out["lam"], lam12, rtol=1e-5, atol=1e-8)
     for r in range(1, MESH_RANKS):
         np.testing.assert_array_equal(got[r]["exact12"]["lam"], out["lam"])
     log(f"9b: exact λ at scale 12 on 2x2 (n_b {out['n_b']}) in "
-        f"{out['seconds']:.3f}s on 4 ranks sharing one H100 over gloo; "
-        f"launches {summed}; == phase 3's λ (rtol 1e-5, atol 1e-8)")
+        f"{out['seconds']:.3f}s on {where}; launches {summed}; == phase "
+        f"3's λ (rtol 1e-5, atol 1e-8)")
+    report["exact12"] = out["seconds"]
     out = r0["solve14"]
     summed = rank_launches(got, "solve14", launches)
     if (out["n_samples"], out["n_epochs"]) != (single.n_samples,
@@ -1771,9 +1918,10 @@ def phase9b(g12, lam12, launches) -> None:
         np.testing.assert_array_equal(got[r]["solve14"]["lam"], out["lam"])
     log(f"9b: (ε, δ) = (0.1, 0.1) solve at scale 14 on 2x2: "
         f"{out['n_samples']} samples in {out['n_epochs']} epochs "
-        f"(converged={out['converged']}), {out['seconds']:.3f}s on 4 ranks "
-        f"sharing one H100 over gloo; launches {summed}; == single host "
-        f"(same samples and epochs, λ̂ rtol 1e-5)")
+        f"(converged={out['converged']}), {out['seconds']:.3f}s on "
+        f"{where}; launches {summed}; == single host (same samples and "
+        f"epochs, λ̂ rtol 1e-5)")
+    report["solve14"] = out["seconds"]
     out = r0["stream"]
     summed = rank_launches(got, "stream", launches)
     for r in range(MESH_RANKS):
@@ -1783,6 +1931,29 @@ def phase9b(g12, lam12, launches) -> None:
         f"(EdgeListReader, 65536-arc chunks) in {out['upload_s']:.3f}s; its "
         f"batch ({out['seconds']:.3f}s) bitwise the eager upload's on every "
         f"rank; launches {summed}")
+    out = r0["serve"]
+    summed = rank_launches(got, "serve", launches)
+    same_served(out["docs"], served_host, "9b serve vs the single host")
+    for r in range(1, MESH_RANKS):
+        if got[r]["serve"]["followed"] != out["mirrored"]:
+            raise AssertionError(f"9b serve: rank {r} ran "
+                                 f"{got[r]['serve']['followed']} calls, "
+                                 f"rank 0 mirrored {out['mirrored']}")
+    for doc in out["docs"]:
+        log(served("9b serve on 2x2", doc))
+    mirror_ms = 1e3 * out["mirror_s"] / max(out["mirrored"], 1)
+    log(f"9b: served on the 2x2 mesh ({where}; "
+        f"rank 0 behind the HTTP gateway, ranks 1-3 following) in "
+        f"{out['seconds']:.3f}s: the fused pair, the cache hit "
+        f"({out['hit_ms']:.2f} ms, byte-identical) and the refine 0.1 -> "
+        f"0.07; {out['mirrored']} executor calls mirrored, the control "
+        f"broadcast {mirror_ms:.3f} ms a call on rank 0; launches {summed}; "
+        f"== the single-host dense service (samples, epochs, converged; λ̂, "
+        f"halfwidths rtol 1e-5)")
+    report["serve"] = dict(seconds=out["seconds"], mirrored=out["mirrored"],
+                           mirror_ms=mirror_ms, hit_ms=out["hit_ms"],
+                           latency_s=[d["latency_s"] for d in out["docs"]])
+    return report
 
 
 def phase9c(launches) -> None:
@@ -1817,9 +1988,117 @@ def phase9c(launches) -> None:
             f"{first_s:.3f}s), launches {phase}; bitwise the single-host "
             f"dense batch")
         del ex
+        torch.cuda.empty_cache()
+        req = BCRequest(rid=0, graph=SERVE_NAME, eps=0.1)
+        svc = BCService({SERVE_NAME: g14}, mesh=mesh)
+        reset_counts()
+        t0 = time.perf_counter()
+        try:
+            svc.submit(req)
+            (resp,) = svc.run()
+        finally:
+            svc.close()
+        dt = time.perf_counter() - t0
+        phase = tally(launches, DENSE_PATH, "9c serve")
+        host = BCService({SERVE_NAME: g14}, device=DEV,
+                         execution=ExecutionConfig(backend="dense"))
+        host.submit(req)
+        (want,) = host.run()
+        same_answer(resp.to_json(), want.to_json(), "9c serve vs the "
+                    "single host")
+        log(f"9c: BCService on the one-rank NCCL mesh served betweenness "
+            f"ε 0.1 in {dt:.3f}s ({resp.n_samples} samples, "
+            f"{resp.n_epochs} epochs, {svc.mirrored} calls mirrored), "
+            f"launches {phase}; bitwise the single-host dense service's "
+            f"answer")
+        del svc, host
     finally:
         dist.destroy_process_group()
     torch.cuda.empty_cache()
+
+
+# -- phase 10: a resumable run ----------------------------------------------
+
+KILL_AFTER = 20  # phase 10's first run dies after saving this global batch
+
+
+class Killed(Exception):
+    """Phase 10's simulated kill of a ``bc_run`` process."""
+
+
+def run_cli(argv, label: str):
+    """``bc_run.main(argv)`` with its output kept: (λ, seconds, output)."""
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            lam = bc_run.main(argv)
+    except Killed:
+        lam = None
+    dt = time.perf_counter() - t0
+    lines = buf.getvalue().splitlines()
+    log(f"{label}: {dt:.3f}s; {lines[-1] if lines else ''}")
+    return lam, dt, buf.getvalue()
+
+
+def phase10(lam12, launches) -> None:
+    """Exact BC at scale 12 through ``bc_run --ckpt-dir`` on dense, n_b 64:
+    an uninterrupted run, and a run killed after global batch
+    ``KILL_AFTER`` then resumed at the next; λ against phase 3's and the
+    uninterrupted run's."""
+    argv = ["--graph", "rmat", "--scale", "12", "--degree", "16",
+            "--weighted", "--nb", "64", "--backend", "dense", "--device",
+            "cuda"]
+    saves = []
+    save = ckpt_lib.save
+
+    def timed_save(ckpt_dir, step, tree, **kw):
+        t0 = time.perf_counter()
+        out = save(ckpt_dir, step, tree, **kw)
+        saves.append(time.perf_counter() - t0)
+        if kill is not None and step == kill:
+            raise Killed
+        return out
+
+    build = os.path.join(ROOT, "build")
+    os.makedirs(build, exist_ok=True)
+    ckpt_lib.save = timed_save
+    try:
+        with tempfile.TemporaryDirectory(dir=build) as tmp:
+            kill = None
+            whole, t_whole, _ = run_cli(
+                argv + ["--ckpt-dir", os.path.join(tmp, "whole")],
+                "10: uninterrupted --ckpt-dir run")
+            save_ms = 1e3 * sum(saves) / len(saves)
+            n_batches = len(saves)
+            kill = KILL_AFTER
+            ck = os.path.join(tmp, "killed")
+            _, t_killed, _ = run_cli(argv + ["--ckpt-dir", ck],
+                                     f"10: a run killed after batch "
+                                     f"{KILL_AFTER}")
+            if ckpt_lib.latest_step(ck) != KILL_AFTER:
+                raise AssertionError(f"10: the killed run left step "
+                                     f"{ckpt_lib.latest_step(ck)}")
+            kill = None
+            reset_counts()
+            torch.cuda.synchronize()
+            lam, t_resumed, text = run_cli(argv + ["--ckpt-dir", ck],
+                                           "10: the resumed run")
+            phase = tally(launches, DENSE_PATH, "10")
+    finally:
+        ckpt_lib.save = save
+    if f"resuming at batch {KILL_AFTER + 1} (nb=64)" not in text:
+        raise AssertionError("10: the second run did not resume at batch "
+                             f"{KILL_AFTER + 1}")
+    np.testing.assert_allclose(lam, lam12, rtol=1e-5, atol=1e-8)
+    np.testing.assert_allclose(lam, whole, rtol=1e-12, atol=0)
+    log(f"10: exact λ at scale 12 through bc_run --ckpt-dir (dense, n_b "
+        f"64, {n_batches} batches): uninterrupted {t_whole:.3f}s; killed "
+        f"after batch {KILL_AFTER} at {t_killed:.3f}s, resumed at batch "
+        f"{KILL_AFTER + 1} in {t_resumed:.3f}s; a checkpoint save "
+        f"{save_ms:.3f} ms a batch; launches of the resumed run {phase}; "
+        f"== phase 3's λ (rtol 1e-5, atol 1e-8) and the uninterrupted "
+        f"run's (rtol 1e-12)")
 
 
 def graph(scale: int):
@@ -2064,6 +2343,12 @@ def main() -> None:
     phase9b(g12, lam, launches)
     phase9c(launches)
     log(f"phase 9 in {time.perf_counter() - t9:.1f}s; the script in "
+        f"{time.perf_counter() - t_start:.1f}s")
+
+    # 10. a resumable run
+    t10 = time.perf_counter()
+    phase10(lam, launches)
+    log(f"phase 10 in {time.perf_counter() - t10:.1f}s; the script in "
         f"{time.perf_counter() - t_start:.1f}s")
 
     rows = [{"name": name, "route": "cuda", "source": k["source"],

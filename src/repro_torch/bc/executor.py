@@ -34,9 +34,10 @@ batch's union frontier makes the bucket pick choose.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Any, Callable, Dict, Protocol, Tuple, Union, \
-    runtime_checkable
+from typing import Any, Callable, ContextManager, Dict, Optional, \
+    Protocol, Tuple, Union, runtime_checkable
 
 import numpy as np
 import torch
@@ -279,12 +280,17 @@ class _ExecutorBase:
     def _segmented(self, src, val, sid, n_seg: int) -> Moments:
         raise NotImplementedError
 
+    # -- metric-generic hooks (betweenness never routes through these) --
     def _metric_moments(self, src, val, metric: str, hops: int) -> Moments:
-        raise NotImplementedError
+        raise NotImplementedError(
+            f"{type(self).__name__} runs betweenness only; metric "
+            f"{metric!r} sweeps are single-host")
 
     def _metric_segmented(self, src, val, sid, mids, kinds, n_seg: int,
                           hops: int) -> Moments:
-        raise NotImplementedError
+        raise NotImplementedError(
+            f"{type(self).__name__} runs betweenness only; metrics "
+            f"{kinds!r} fuse single-host")
 
     def labels(self) -> np.ndarray:
         """The components fixed point: (n,) float64 labels."""
@@ -413,7 +419,20 @@ class MeshExecutor(_ExecutorBase):
     share one lazily built ``MeshBCContext``: the padded, permuted
     adjacency is uploaded once, and the kernels' split count is fixed
     for every bucket (``MeshBCContext.for_batches``).
+
+    Serving on a mesh (``serve.BCService(mesh=)``): requests reach rank 0
+    only, so rank 0 sets ``mirror`` and each batch the executor has
+    checked and padded runs inside ``with mirror(hook, args):``, which
+    hands it to the other ranks before its collectives start; they run
+    it with ``replay(hook, args)`` on their own executor, built from
+    rank 0's plan. A call the executor refuses (a metric other than
+    betweenness, ``labels()``, a batch over ``n_b``) raises before
+    ``mirror`` sees it, and so does a failure of rank 0's lazy context
+    upload, which needs no collective.
     """
+
+    HOOKS = ("_moments", "_sum", "_segmented")  # what ``replay`` runs
+    mirror: Optional[Callable[[str, tuple], ContextManager]] = None
 
     def __init__(self, g: Graph, plan: BCPlan, mesh=None, *, device="cuda"):
         if mesh is None:
@@ -447,15 +466,32 @@ class MeshExecutor(_ExecutorBase):
                                       ).for_batches(self.n_b)
         return self._ctx
 
+    def _mirrored(self, hook: str, *args) -> ContextManager:
+        return (contextlib.nullcontext() if self.mirror is None
+                else self.mirror(hook, args))
+
+    def replay(self, hook: str, args: tuple):
+        """Run a call another rank's ``mirror`` announced: ``hook`` (one
+        of ``HOOKS``) on its checked, padded arguments."""
+        if hook not in self.HOOKS:
+            raise ValueError(f"replay runs one of {self.HOOKS}, got "
+                             f"{hook!r}")
+        return getattr(self, hook)(*args)
+
     def _moments(self, src, val) -> Moments:
-        return self._context().run_moments(src, val, nb=self.n_b)
+        ctx = self._context()
+        with self._mirrored("_moments", src, val):
+            return ctx.run_moments(src, val, nb=self.n_b)
 
     def _sum(self, src, val) -> np.ndarray:
-        return self._context().run_sum(src, val, nb=self.n_b)
+        ctx = self._context()
+        with self._mirrored("_sum", src, val):
+            return ctx.run_sum(src, val, nb=self.n_b)
 
     def _segmented(self, src, val, sid, n_seg: int) -> Moments:
-        return self._context().run_segmented(src, val, sid, n_seg,
-                                             nb=src.shape[0])
+        ctx = self._context()
+        with self._mirrored("_segmented", src, val, sid, n_seg):
+            return ctx.run_segmented(src, val, sid, n_seg, nb=src.shape[0])
 
 
 def build_executor(g: Graph, plan: BCPlan, *, mesh=None,

@@ -3,7 +3,8 @@
   PYTHONPATH=src python -m repro_torch.launch.bc_run --graph rmat \
       --scale 8 --degree 8 [--weighted] [--nb 64] \
       [--backend auto|dense|coo|csr] [--device cuda|cpu] [--verify] \
-      [--metric betweenness|closeness|khop|components] [--hops k]
+      [--metric betweenness|closeness|khop|components] [--hops k] \
+      [--ckpt-dir d]
 
 Every mode is one call into ``repro_torch.bc``: build a ``BCQuery``, let
 ``BCPlanner`` resolve the backend and batch size (printed as the ``BCPlan``
@@ -44,13 +45,18 @@ card a rank, gloo for ranks that share a card or run on the CPU::
   torchrun --nproc-per-node 4 -m repro_torch.launch.bc_run --mesh 2x2 \
       --approx 0.1,0.1 --dist-backend gloo --device cpu
 
-``--ckpt-dir`` of ``repro.launch.bc_run`` exits naming the slice that
-brings it.
+Per-batch checkpointing (``--ckpt-dir``, exact mode): the cumulative λ,
+the global batch index and the batch size are saved after every batch
+(``repro_torch.train.checkpoint``, the reference's format), so a killed
+run resumes at the next batch without recomputing finished ones
+(Algorithm 3's outer loop is embarrassingly restartable). A resume reuses
+the checkpoint's batch size; a ``--nb`` that differs exits.
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import io
 import time
 
@@ -66,8 +72,8 @@ from repro_torch.core.brandes_ref import (brandes_bc, cc_ref, closeness_ref,
 from repro_torch.core.metrics import METRICS
 from repro_torch.graphs.generators import from_spec
 from repro_torch.launch.mesh import mesh_from_spec, parse_mesh_spec
+from repro_torch.train import checkpoint as ckpt_lib
 
-_UNPORTED = {"ckpt_dir": "per-batch checkpoints are slice 7"}
 # --verify oracles per metric: (name printed, oracle(g, hops))
 _ORACLES = {"betweenness": ("the Brandes", lambda g, hops: brandes_bc(g)),
             "closeness": ("closeness_ref", lambda g, hops: closeness_ref(g)),
@@ -153,10 +159,6 @@ def main(argv=None):
                     help="hop bound (edges) for --metric khop")
     ap.add_argument("--ckpt-dir", default="")
     args = ap.parse_args(argv)
-    for opt, why in _UNPORTED.items():
-        if getattr(args, opt):
-            raise SystemExit(f"[bc] --{opt.replace('_', '-')} is not ported "
-                             f"yet: {why} of ROADMAP.md")
     try:
         resolve_device(args.device)
     except RuntimeError as e:
@@ -224,6 +226,22 @@ def _run(args, mesh):
                         **kw)
     except ValueError as e:  # e.g. --metric khop without --hops
         raise SystemExit(f"[bc] bad query: {e}")
+    start_batch, lam_acc = 0, np.zeros(g.n)
+    if args.ckpt_dir and not args.approx:
+        step = ckpt_lib.latest_step(args.ckpt_dir)
+        if step is not None:
+            flat, _ = ckpt_lib.restore(args.ckpt_dir)
+            lam_acc = flat["lam"]
+            start_batch = step + 1
+            # The sweep's source ranges are keyed by nb: a resume must
+            # reuse the checkpoint's batch size, not whatever the planner
+            # (or a changed --nb) would pick today.
+            ckpt_nb = int(flat["nb"]) if "nb" in flat else (args.nb or 64)
+            if args.nb and args.nb != ckpt_nb:
+                raise SystemExit(f"--nb {args.nb} mismatches checkpoint "
+                                 f"batch size nb={ckpt_nb}")
+            query = dataclasses.replace(query, n_b=ckpt_nb)
+            print(f"[bc] resuming at batch {start_batch} (nb={ckpt_nb})")
     try:
         pl = bc_plan(g, query, mesh=mesh,
                      n_devices=None if mesh is not None else 1,
@@ -238,12 +256,23 @@ def _run(args, mesh):
         def progress(epoch, tau, max_hw):
             print(f"[bc] epoch {epoch}: tau={tau} max_halfwidth={max_hw:.4f}")
     else:
-        def progress(b, n_batches, lam):
-            print(f"[bc] batch {b + 1}/{n_batches}")
+        total_batches = -(-g.n // pl.n_b)
 
+        def progress(b, n_batches, lam):
+            gb = start_batch + b  # global batch index across resumes
+            if args.ckpt_dir:
+                # Cumulative λ at the global step: a second kill + resume
+                # restores the whole prefix, not just this run's segment.
+                ckpt_lib.save(args.ckpt_dir, gb, {"lam": lam + lam_acc,
+                                                  "batch": gb,
+                                                  "nb": pl.n_b})
+            print(f"[bc] batch {gb + 1}/{total_batches}")
+
+    sources = (None if args.approx
+               else np.arange(start_batch * pl.n_b, g.n, dtype=np.int32))
     t0 = time.time()
     out = bc_solve(g, query, mesh=mesh, plan=pl, progress_cb=progress,
-                   device=args.device)
+                   sources=sources, device=args.device)
     dt = time.time() - t0
     if out.plan.occupancy is not None:
         occ = out.plan.occupancy
@@ -258,7 +287,7 @@ def _run(args, mesh):
               f"{teps:,.0f} TEPS (model)")
         _report_approx(g, res, args, eps, delta)
         return res
-    lam = out.lam
+    lam = out.lam + lam_acc
     print(f"[bc] done in {dt:.2f}s — {teps:,.0f} TEPS (model)")
     top = np.argsort(lam)[::-1][:5]
     print("[bc] top-5 central vertices:", list(zip(top.tolist(),

@@ -56,21 +56,57 @@ pre-fusion behavior).
 
 A copy of ``repro.serve.bc_service`` over the port. It differs in
 interface only: ``device`` ("cuda" by default, raising without a card, or
-"cpu") is where every executor of the service runs; ``mesh=`` raises
-``NotImplementedError``: on a multi-process mesh every rank must run rank
-0's ticks, a protocol of its own (slice 6b of ROADMAP.md; ``solve(...,
-mesh=)`` runs on a mesh today); the deprecated ``backend=`` keyword is gone (pass ``execution=``). The
-module imports only public ``repro_torch.bc`` names, which
-``tests/test_torch_imports.py`` checks.
+"cpu") is where every executor of the service runs; on a mesh of
+``torch.distributed`` ranks (``mesh=``) every rank constructs the service,
+rank 0 serves and the others call ``follow()`` until rank 0's ``close()``
+(below); the deprecated ``backend=`` keyword is gone (pass
+``execution=``). The module imports only public ``repro_torch.bc`` names,
+which ``tests/test_torch_imports.py`` checks.
+
+Serving on a mesh. The reference's mesh lives in one process; the port's
+is a set of ranks, and every collective needs every rank while requests
+reach rank 0 only. So rank 0 mirrors its executors: each batch a graph's
+``MeshExecutor`` has checked and padded is broadcast to the other ranks
+(the graph's name, the call and its numpy arguments; the first message
+of a graph also carries rank 0's ``BCPlan``) on a gloo control group
+before its collectives start, and each other rank runs the same call on
+its own executor, built from that plan. Ticks, fused or not, the
+gateway's refines and the lazy adjacency upload all go through these
+calls. Calls the executor refuses raise on rank 0 before anything is
+sent. Constructing a mesh service is collective (it creates the control
+group), so every rank constructs its services in the same order::
+
+    svc = BCService(graphs, mesh=mesh, checkpoints=True)
+    if mesh.rank == 0:
+        try:
+            ...                      # serve: a gateway, svc.run(), ...
+        finally:
+            svc.close()              # the followers' stop message
+    else:
+        svc.follow()                 # returns on rank 0's close()
+
+The control group's timeout is ``ctrl_timeout`` (torch's gloo default when
+None). A follower never waits for rank 0's next message longer than it:
+while no call is in flight, rank 0 sends a keep-alive every quarter of
+it, which ``follow()`` skips, so an idle server keeps its followers for
+as long as it serves. The followers call ``follow()`` right after they
+construct the service. An exception in a mirrored call is not caught,
+and ends ``follow()`` on that rank.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import datetime
+import functools
 import math
+import threading
 import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
 from repro_torch import resolve_device
 from repro_torch.bc import (PACKS, TIER_DEADLINE_S, TIERS, AdaptiveSampler,
@@ -83,10 +119,19 @@ from repro_torch.bc import plan as bc_plan
 from repro_torch.bc import stopping_check
 from repro_torch.graphs.formats import Graph, graph_digest
 
-_MESH_MSG = ("BCService(mesh=...): serving on a multi-process mesh needs "
-             "follower ranks that run rank 0's ticks, slice 6b of "
-             "ROADMAP.md; serve on one device, or run repro_torch.bc."
-             "solve(..., mesh=) on every rank")
+_BEAT = "beat"  # rank 0's keep-alive on the control group; follow() skips it
+
+
+def _mesh_device(mesh, device):
+    """A mesh service runs on its mesh's device; ``device``, when given,
+    must name it."""
+    if device is not None:
+        dev = torch.device(device)
+        if dev.type != mesh.device.type or dev.index not in (
+                None, mesh.device.index):
+            raise ValueError(f"BCService(mesh=) runs on the mesh's device "
+                             f"{mesh.device}, got device={device!r}")
+    return mesh.device
 
 
 @dataclasses.dataclass
@@ -235,11 +280,15 @@ class BCService:
 
     The ``repro_torch.bc`` planner places each graph on one ``device``
     ("cuda", the default, or "cpu"); every executor of the service is
-    built there. ``mesh=`` raises ``NotImplementedError``: serving on a
-    mesh needs follower ranks (slice 6b of ROADMAP.md). ``iters`` is
-    recorded in the plans, as in the reference. Per-graph capacity plans
-    are inspectable via ``plan_for(name)``, per-request plans via the
-    ``plan`` field of each ``BCResponse``.
+    built there. With a ``launch.mesh.Mesh`` (``mesh=``) every registered
+    graph's executor is the distributed moments step instead, on the
+    mesh's device (a different ``device`` raises): rank 0 serves, every
+    other rank calls ``follow()``, and rank 0's ``close()`` stops them
+    (the module docstring); ``ctrl_timeout`` is the control group's
+    timeout. ``iters`` bounds the mesh step's sweeps
+    (0 = graph size) and is recorded in the plans, as in the reference.
+    Per-graph capacity plans are inspectable via ``plan_for(name)``,
+    per-request plans via the ``plan`` field of each ``BCResponse``.
 
     ``pack`` picks the scheduling policy (``repro_torch.bc.PACKS``):
     ``"deadline"`` (default) admits earliest-absolute-deadline-first and
@@ -261,15 +310,44 @@ class BCService:
                  execution: Optional[ExecutionConfig] = None, mesh=None,
                  iters: int = 0, fuse: bool = True, pack: str = "deadline",
                  tick_budget: Optional[int] = None,
-                 checkpoints: bool = False, device="cuda"):
+                 checkpoints: bool = False, device=None,
+                 ctrl_timeout: Optional[datetime.timedelta] = None):
         if pack not in PACKS:
             raise ValueError(f"pack must be one of {PACKS}, got {pack!r}")
         if tick_budget is not None and tick_budget <= 0:
             raise ValueError(f"tick_budget must be positive or None, "
                              f"got {tick_budget}")
+        self.mesh = mesh
+        self.device = (resolve_device("cuda" if device is None else device)
+                       if mesh is None else _mesh_device(mesh, device))
+        # Without a mesh the service runs on its one device, however many
+        # cards the host has: a mesh of ranks is only ever the caller's.
+        self._n_devices = 1 if mesh is None else None
+        # Mesh serving: the control group rank 0 mirrors its executors'
+        # calls on (host objects, whatever the mesh's data backend), the
+        # graphs already announced to the followers, rank 0's count and
+        # seconds of mirrored calls, and its keep-alive thread, which
+        # sends while nothing else has been sent for a quarter of the
+        # group's timeout.
+        self._ctrl = None
+        self._announced: set = set()
+        self._ctrl_lock = threading.Lock()
+        self._closed = False
+        self._last_sent = time.monotonic()
+        self._stop_beats = threading.Event()
+        self._beats: Optional[threading.Thread] = None
+        self.mirrored = 0
+        self.mirror_seconds = 0.0
         if mesh is not None:
-            raise NotImplementedError(_MESH_MSG)
-        self.device = resolve_device(device)
+            timeout = (dist.default_pg_timeout if ctrl_timeout is None
+                       else ctrl_timeout)
+            self._ctrl = dist.new_group(backend="gloo", timeout=timeout)
+            self._beat_s = timeout.total_seconds() / 4
+            if mesh.rank == 0 and dist.get_world_size(self._ctrl) > 1:
+                self._beats = threading.Thread(
+                    target=self._keep_alive, daemon=True,
+                    name="bc-service-keep-alive")
+                self._beats.start()
         # Registration accepts a plain Graph or a (Graph, digest) pair —
         # a caller that already holds the content digest passes it, so
         # serve does not recompute it; graphs registered without one get
@@ -321,11 +399,18 @@ class BCService:
         capped at this executor's ``n_b``; per-request (ε, δ) sizing
         happens in ``_plan_for_request`` on top."""
         if name not in self._executors:
+            if self.mesh is not None and self.mesh.rank != 0:
+                raise RuntimeError(
+                    f"rank {self.mesh.rank} of a mesh service runs rank "
+                    f"0's calls: call follow(), serve on rank 0")
             g = self.graphs[name]
             pl = bc_plan(g, BCQuery(mode="approx", execution=self.execution,
-                                    iters=self.iters), device=self.device)
-            self._executors[name] = build_executor(g, pl,
-                                                   device=self.device)
+                                    iters=self.iters), mesh=self.mesh,
+                         n_devices=self._n_devices, device=self.device)
+            ex = build_executor(g, pl, mesh=self.mesh, device=self.device)
+            if self.mesh is not None:
+                ex.mirror = functools.partial(self._announce, name)
+            self._executors[name] = ex
         return self._executors[name]
 
     def _assembler(self, name: str) -> BatchAssembler:
@@ -351,7 +436,8 @@ class BCService:
                 self.graphs[req.graph], eps=req.eps, delta=req.delta,
                 rule=req.rule, max_samples=req.max_samples,
                 tier=req.priority, execution=self.execution,
-                iters=self.iters, device=self.device,
+                iters=self.iters, mesh=self.mesh,
+                n_devices=self._n_devices, device=self.device,
                 metric=req.metric, hops=req.hops)
         return self._request_plans[key]
 
@@ -359,6 +445,84 @@ class BCService:
         """The capacity ``BCPlan`` serving this graph (builds the
         executor)."""
         return self._graph_executor(name).plan
+
+    # ------------------------------------------------------- mesh serving
+    @contextlib.contextmanager
+    def _announce(self, name: str, hook: str, args: tuple):
+        """Rank 0: send one checked executor call of graph ``name`` to the
+        followers (the graph's plan with its first call), then run it here
+        (the ``with`` body) under the control lock, so that no keep-alive
+        is sent while the followers are inside the call."""
+        plan = (None if name in self._announced
+                else self._executors[name].plan.to_json())
+        with self._ctrl_lock:
+            if self._closed:
+                raise RuntimeError("this mesh service is closed: its "
+                                   "followers have returned")
+            t0 = time.perf_counter()
+            dist.broadcast_object_list([(name, hook, args, plan)], src=0,
+                                       group=self._ctrl)
+            self.mirror_seconds += time.perf_counter() - t0
+            self.mirrored += 1
+            self._announced.add(name)
+            try:
+                yield
+            finally:
+                self._last_sent = time.monotonic()
+
+    def _keep_alive(self) -> None:
+        """Rank 0's keep-alive thread: between calls, send ``_BEAT``
+        whenever nothing was sent for ``_beat_s``, until ``close()``."""
+        while not self._stop_beats.wait(self._beat_s):
+            with self._ctrl_lock:
+                if self._closed:
+                    return
+                if time.monotonic() - self._last_sent >= self._beat_s:
+                    dist.broadcast_object_list([_BEAT], src=0,
+                                               group=self._ctrl)
+                    self._last_sent = time.monotonic()
+
+    def follow(self) -> int:
+        """Every rank but 0 of a mesh service: run rank 0's executor calls
+        on this rank's own executors until rank 0's ``close()``; the
+        results (identical to rank 0's) are dropped. Returns the number of
+        calls run."""
+        if self.mesh is None or self.mesh.rank == 0:
+            raise RuntimeError("follow() runs on the ranks other than 0 of "
+                               "a mesh service; rank 0 serves")
+        calls = 0
+        while True:
+            msg = [None]
+            dist.broadcast_object_list(msg, src=0, group=self._ctrl)
+            if msg[0] is None:
+                return calls
+            if msg[0] == _BEAT:
+                continue
+            name, hook, args, plan = msg[0]
+            if plan is not None:
+                self._executors[name] = build_executor(
+                    self.graphs[name], BCPlan.from_json(plan),
+                    mesh=self.mesh, device=self.device)
+            self._executors[name].replay(hook, args)
+            calls += 1
+
+    def close(self) -> None:
+        """Rank 0 of a mesh service: send the followers their stop message
+        (once; call it in a ``finally``). Without a mesh, nothing to do."""
+        if self.mesh is None:
+            return
+        if self.mesh.rank != 0:
+            raise RuntimeError("close() runs on rank 0 of a mesh service; "
+                               "the other ranks return from follow()")
+        # Under the lock: a gateway worker still inside a tick either sent
+        # its call before the stop message, or raises instead of sending.
+        with self._ctrl_lock:
+            if not self._closed:
+                self._closed = True
+                dist.broadcast_object_list([None], src=0, group=self._ctrl)
+        self._stop_beats.set()
+        if self._beats is not None:
+            self._beats.join()
 
     # ------------------------------------------------- public introspection
     def executor_for(self, name: str) -> BatchExecutor:

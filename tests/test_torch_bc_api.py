@@ -388,14 +388,34 @@ def test_bc_run_without_a_card_names_the_cpu(monkeypatch):
      None),
     # slice 4 is ported: the metric runs and passes its own oracle
     (["--metric", "closeness"], None),
-    (["--ckpt-dir", "ck"], "slice 7"),
+    # slice 7's checkpoints are ported: a run killed after batch 1
+    # resumes at batch 2 (the id is the one the case had when it named
+    # its slice)
+    pytest.param(["--ckpt-dir", "ck", "--nb", "8"], None,
+                 id="argv3-slice 7"),
 ])
 def test_bc_run_unported_options_name_their_slice(argv, slice_, capsys,
-                                                  monkeypatch):
+                                                  monkeypatch, tmp_path):
     argv = ["--scale", "5", "--device", "cpu"] + argv
     if slice_ is not None:
         with pytest.raises(SystemExit, match=slice_):
             bc_run.main(argv)
+        return
+    if "--ckpt-dir" in argv:
+        import shutil
+
+        from repro_torch.train import checkpoint as ckpt_lib
+
+        ck = tmp_path / "ck"
+        argv[argv.index("ck")] = str(ck)
+        bc_run.main(argv)
+        for s in ckpt_lib.all_steps(str(ck)):
+            if s > 1:
+                shutil.rmtree(ck / f"step_{s:010d}")
+        bc_run.main(argv + ["--verify"])
+        out = capsys.readouterr().out
+        assert "resuming at batch 2 (nb=8)" in out
+        assert "verified against the Brandes oracle" in out
         return
     if "--mesh" in argv:
         with socket.socket() as sock:

@@ -61,6 +61,9 @@ _MODULES = {
     # slice 6: the distributed step and the out-of-core ingest
     "repro_torch.launch.mesh", "repro_torch.spgemm.semiring",
     "repro_torch.spgemm.dist", "repro_torch.core.dist_bc",
+    # slice 7's fault-tolerance half: checkpoints, restarts, elastic n_b
+    "repro_torch.train", "repro_torch.train.checkpoint",
+    "repro_torch.train.fault", "repro_torch.train.elastic",
 }
 
 _BANNED = re.compile(r"^\s*(?:import|from)\s+(?:jax|repro)\b", re.MULTILINE)

@@ -13,24 +13,27 @@ reference's ``repro.serve.BCService``.
   betweenness with the same request alone within rtol 1e-5, the port
   compares it bitwise: its ``step`` and ``step_segmented`` add a batch's
   rows in the same order.
-* The interface differences: ``mesh=`` raises naming slice 6b (serving on
-  a multi-process mesh), there is no ``backend=`` keyword, and the default
-  device is the card.
+* The interface differences: a 1 × 1 mesh service (one gloo rank) is
+  bitwise the single-host dense service, there is no ``backend=`` keyword,
+  and the default device is the card.
 """
 import json
 
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 import repro.serve.bc_service as jsvc
 from repro.graphs.generators import rmat as jrmat
 from repro.graphs.generators import ring_of_cliques as jring
 from repro_torch.approx.sampling import hoeffding_budget
-from repro_torch.bc import BCQuery, LambdaEstimator, honest_converged, solve
+from repro_torch.bc import (BCQuery, ExecutionConfig, LambdaEstimator,
+                            honest_converged, solve)
 from repro_torch.core.brandes_ref import brandes_bc, cc_ref
 from repro_torch.graphs import Graph
 from repro_torch.graphs.generators import ring_of_cliques, rmat, star_graph
+from repro_torch.launch.mesh import Mesh
 import repro_torch.serve.bc_service as tsvc
 from repro_torch.serve.bc_service import BCRequest, BCService
 
@@ -106,14 +109,57 @@ def test_service_matches_reference(pack, budget):
 
 # ----------------------------------------------------- interface differences
 def test_mesh_names_its_slice():
-    """The reference serves epochs through the distributed step on a
-    mesh. The port runs the step (``solve(..., mesh=)``), but serving on
-    a multi-process mesh needs follower ranks that run rank 0's ticks: the
-    service raises at construction, naming that later slice."""
-    with pytest.raises(NotImplementedError,
-                       match="follower ranks that run rank 0's ticks, "
-                             "slice 6b of ROADMAP.md"):
-        _svc({"web": _graph()}, mesh=object())
+    """A 1 × 1 mesh service answers: a lone request and a fused pair on a
+    one-rank gloo world, bitwise the single-host dense service's (the
+    multi-rank mesh is ``tests/test_torch_mesh_serve.py``)."""
+    reqs = [BCRequest(rid=0, graph="web", eps=0.1),
+            BCRequest(rid=1, graph="web", eps=0.1, priority="interactive"),
+            BCRequest(rid=2, graph="web", eps=0.2, seed=4)]
+    host = _svc({"web": _graph()}, n_slots=2,
+                execution=ExecutionConfig(backend="dense"))
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = Mesh((1, 1), ("data", "model"), device="cpu")
+        svc = BCService({"web": _graph()}, n_slots=2, mesh=mesh)
+        try:
+            with pytest.raises(ValueError, match="the mesh's device"):
+                BCService({"web": _graph()}, mesh=mesh, device="cuda:1")
+            answers = []
+            for batch in (reqs[:1], reqs[1:]):  # alone, then fused
+                for r in batch:
+                    svc.submit(r)
+                    host.submit(r)
+                answers.append((svc.run(), host.run()))
+        finally:
+            svc.close()
+        assert svc.mirrored > 0 and svc.device == torch.device("cpu")
+    finally:
+        dist.destroy_process_group()
+    got, want = answers[-1]
+    assert [r.rid for r in got] == [r.rid for r in want] == [0, 1, 2]
+    for a, b in zip(got, want):
+        assert a.plan.placement == "mesh" and b.plan.placement == \
+            "single_host"
+        a, b = a.to_json(), b.to_json()
+        for key in ("topk", "lam", "halfwidth", "n_samples", "n_epochs",
+                    "converged"):
+            assert a[key] == b[key], key
+
+
+def test_service_without_a_mesh_stays_on_its_device(monkeypatch):
+    """On a host with several cards a service without ``mesh=`` plans one
+    device: a mesh of ranks is the caller's to build (the planner alone
+    would place the graph on a mesh, whose executor needs a process
+    group)."""
+    import repro_torch.bc.planner as planner
+
+    monkeypatch.setattr(planner, "device_count", lambda device: 4)
+    svc = _svc({"web": _graph()})
+    assert svc.plan_for("web").placement == "single_host"
+    assert svc.request_plan(BCRequest(rid=0, graph="web")).n_devices == 1
+    svc.submit(BCRequest(rid=0, graph="web", eps=0.2))
+    assert svc.run()[0].converged
 
 
 def test_no_deprecated_backend_keyword():
