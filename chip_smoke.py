@@ -166,6 +166,38 @@ order; any failed check raises and the script exits non-zero:
     that it resumes at batch 21; its λ equals phase 3's (rtol 1e-5, atol
     1e-8) and the uninterrupted run's (rtol 1e-12). The runs' seconds and
     a save's ms a batch.
+11. LM serving (``repro_torch.models``, ``serve.engine``, ``launch.serve``),
+    f32 with TF32 off (the flag is printed; the phase fails if it is on):
+    a. gemma2-27b at its full width (d_model 4608, 32 query / 16 KV heads of
+       128, d_ff 36864 GeGLU, vocab 256000, softcaps 50 / 30, alternating
+       4096-window local / global layers, tied scaled embeddings), 8 of its
+       46 layers, weights drawn on the card from a seeded CUDA generator: a
+       ``ServeEngine`` of 4 slots and ``max_len`` 4352 serves 6 requests
+       (prompts of 16, 128, 512, 1000, 4200 and 64 tokens; the 4200-token
+       one passes the window), so slots recycle and position groups
+       differ. Every token equals the argmax of one teacher-forced pass
+       over its request's prompt and its own tokens (``forward_hidden``,
+       then the LM head at the generated positions only), but where the two
+       tokens' logits are within 1e-4 · max|logit| (counted). Printed: the
+       parameter bytes, each prefill's ms, ms a ``decode_step`` beside its
+       bound (the parameter bytes at 3.35 TB/s), tokens per second, ticks
+       and peak device memory;
+       Then one ``decode_step`` over the 4 slots by CUDA events and under
+       ``torch.profiler``: the device's busy share and its top kernels;
+    b. moonshot-v1-16b-a3b at its full width (MoE of 64 experts, top 6, 2
+       shared), 2 of its 48 layers: one prefill of 2 × 256 tokens and 8
+       ``decode_step``s on the card against the same calls on the CPU with
+       the weights copied there, in f64 (logits and caches within rtol
+       1e-4, atol 1e-4 · max(1, max|x|); layer 0's MoE on one identical
+       input within 1e-6 of its scale: the dispatch by ``index_add_``
+       atomics) and in f32 (the difference printed; see ``phase11b``);
+    c. ``launch.serve.main(["--arch", a, "--smoke", "--device", d])`` for
+       each of the five architectures on the card and on the CPU: the
+       printed line, the shape, and the same token ids (a row may differ
+       from a near tie on, judged on the CPU's logits).
+    Phase 11 runs none of the three kernels: the LM's products are
+    ``torch.matmul`` / ``torch.einsum``, as the reference computes them
+    outside any Pallas kernel. It fails if one of them launched.
 
 Each main-path run (phases 3, 4, 5a, 5b on the dense kernels, 6c and 6d
 on the sparse relax, every run of 7a, 7c and 7d on its backend's
@@ -246,6 +278,11 @@ from repro_torch.serve.gateway import (GatewayHTTPServer,  # noqa: E402
                                        GatewayServer)
 from repro_torch.spgemm.cost_model import load_calibration  # noqa: E402
 from repro_torch.train import checkpoint as ckpt_lib  # noqa: E402
+from repro_torch.configs import ARCHS, get_arch  # noqa: E402
+from repro_torch.launch import serve as lm_serve  # noqa: E402
+from repro_torch.models import layers as LL  # noqa: E402
+from repro_torch.models import transformer as T  # noqa: E402
+from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
 
 INF = float("inf")
 DEV = torch.device("cuda")
@@ -2101,6 +2138,339 @@ def phase10(lam12, launches) -> None:
         f"run's (rtol 1e-12)")
 
 
+# 11. LM serving at gemma2-27b's full width. Only depth is cut: all 46
+# layers are 108.9 GB in f32, 8 (four local/global pairs) 22.84 GB.
+LM_ARCH, LM_LAYERS = "gemma2-27b", 8
+LM_SLOTS, LM_MAX_LEN = 4, 4352
+# (prompt length, max_new): six requests through four slots; the 4200-token
+# prompt passes the local layers' 4096 window
+LM_REQUESTS = ((16, 16), (128, 8), (512, 32), (1000, 4), (4200, 8), (64, 24))
+MOE_ARCH, MOE_LAYERS = "moonshot-v1-16b-a3b", 2
+MOE_BATCH, MOE_PROMPT, MOE_STEPS = 2, 256, 8
+LM_TIE = 1e-4  # a differing token's logit within this share of max|logit|
+PROFILE_STEPS = 3  # 11a's decode steps under the profiler
+
+
+def lm_config(arch: str, n_layers: int):
+    """A published config at its full width, ``n_layers`` deep (as
+    ``LMArch.build``'s ``layers_override`` cuts it)."""
+    return dataclasses.replace(get_arch(arch).config(), n_layers=n_layers)
+
+
+def param_bytes(model) -> int:
+    return sum(p.numel() * p.element_size() for p in model.parameters())
+
+
+def tie_or_fail(row: torch.Tensor, got: int, want: int, what: str) -> None:
+    """Accept token ``got`` where ``want`` is the argmax of ``row`` only if
+    their logits are within ``LM_TIE`` of max|logit|."""
+    gap = float(row[want] - row[got])
+    bound = LM_TIE * float(row.abs().max())
+    if gap > bound:
+        raise AssertionError(f"{what}: token {got}, argmax {want}, "
+                             f"{gap:.3e} apart (near-tie bound {bound:.3e})")
+
+
+def teacher_forced(model, req, label: str) -> int:
+    """Each of ``req``'s tokens against the argmax of one teacher-forced
+    pass over its prompt and its own tokens (the LM head only at the
+    generated positions); returns the near ties it accepted."""
+    cfg = model.cfg
+    seq = np.concatenate([req.prompt, np.asarray(req.out[:-1], np.int64)])
+    toks = torch.as_tensor(seq[None], dtype=torch.long, device=model.device)
+    at = torch.arange(len(req.prompt) - 1, len(seq), device=model.device)
+    h = T.forward_hidden(model, toks)[:, at]
+    logits = LL.lm_logits(model.head(), h, cap=cfg.final_softcap,
+                          tied=cfg.tie_embeddings)[0]
+    best = torch.argmax(logits, -1).cpu().numpy()
+    ties = 0
+    for i, tok in enumerate(req.out):
+        if tok != best[i]:
+            tie_or_fail(logits[i], tok, int(best[i]),
+                        f"{label}: request {req.rid} token {i}")
+            ties += 1
+    return ties
+
+
+def timed(fn, into: list):
+    """``fn`` with each call's host seconds (it ends in a device-to-host
+    read) appended to ``into``."""
+    def call(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        into.append(time.perf_counter() - t0)
+        return out
+    return call
+
+
+def phase11a() -> None:
+    """``ServeEngine`` over gemma2-27b at full width, ``LM_LAYERS`` deep,
+    f32: six requests through four slots, every token held against a
+    teacher-forced pass."""
+    cfg = lm_config(LM_ARCH, LM_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = T.init_params(cfg, torch.Generator(device=DEV).manual_seed(0),
+                          DEV)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    nbytes = param_bytes(model)
+    if nbytes != 4 * cfg.n_params():
+        raise AssertionError(f"11a: {nbytes} parameter bytes, "
+                             f"{4 * cfg.n_params()} expected")
+    eng = ServeEngine(model, n_slots=LM_SLOTS, max_len=LM_MAX_LEN)
+    pre_s, dec_s = [], []
+    eng._prefill = timed(eng._prefill, pre_s)
+    eng._decode = timed(eng._decode, dec_s)
+    rng = np.random.default_rng(0)
+    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab, n), max_new=m)
+            for i, (n, m) in enumerate(LM_REQUESTS)]
+    for r in reqs:
+        eng.submit(r)
+    t0 = time.perf_counter()
+    ticks = 0
+    while eng.queue or eng.active:
+        eng.step()
+        ticks += 1
+    t_run = time.perf_counter() - t0
+    if [len(r.out) for r in reqs] != [m for _, m in LM_REQUESTS]:
+        raise AssertionError(f"11a: {[len(r.out) for r in reqs]} tokens")
+    t0 = time.perf_counter()
+    ties = sum(teacher_forced(model, r, "11a") for r in reqs)
+    t_check = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    profile = decode_profile(eng)
+    n_tok = sum(len(r.out) for r in reqs)
+    kv = 2 * 4 * cfg.n_layers * LM_SLOTS * LM_MAX_LEN * cfg.n_kv * cfg.hd
+    bound = nbytes / PEAK_BYTES_PER_S * 1e3
+    bound_kv = (nbytes + kv) / PEAK_BYTES_PER_S * 1e3
+    dec = np.asarray(dec_s) * 1e3
+    log(f"11a: {cfg.name} at full width (d {cfg.d_model}, {cfg.n_heads}/"
+        f"{cfg.n_kv} heads of {cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
+        f"softcaps {cfg.attn_softcap}/{cfg.final_softcap}, windows "
+        f"{sorted(set(cfg.layer_windows().tolist()))}), {cfg.n_layers} of "
+        f"46 layers, f32: {cfg.n_params():,} parameters, {nbytes:,} bytes, "
+        f"drawn on the card in {t_init:.3f}s; KV cache {kv:,} bytes")
+    log(f"11a: prefill ms by prompt length: " + ", ".join(
+        f"{len(r.prompt)}: {1e3 * s:.3f}" for r, s in zip(reqs, pre_s)))
+    log(f"11a: {len(dec)} decode_steps over {LM_SLOTS} slots: mean "
+        f"{dec.mean():.3f} ms, median {np.median(dec):.3f}, min "
+        f"{dec.min():.3f}, max {dec.max():.3f}; bound {bound:.3f} ms "
+        f"(parameter bytes / 3.35 TB/s; {bound_kv:.3f} ms with the KV "
+        f"cache's bytes)")
+    log(f"11a: {n_tok} tokens in {ticks} ticks, {t_run:.3f}s: "
+        f"{n_tok / t_run:.3f} tokens/s; peak device memory "
+        f"{peak / 2**30:.3f} GiB; every token the teacher-forced argmax "
+        f"({ties} near ties within {LM_TIE} of max|logit|), checked in "
+        f"{t_check:.3f}s")
+    log(f"11a: a decode_step over the 4 slots (the engine's cache, at "
+        f"position {LM_MAX_LEN - 8}; profiler over {PROFILE_STEPS}): "
+        f"{profile['ms']:.3f} ms by CUDA events, device busy "
+        + (f"{profile['busy']:.3f} of its wall time" if profile["busy"]
+           else "not measured (the profiler saw no device time)")
+        + "; by kernel, ms a step: "
+        + "; ".join(f"{name} {ms:.3f}" for name, ms in profile["top"]))
+
+
+def decode_profile(eng) -> dict:
+    """Where a ``decode_step`` over every slot spends its device time:
+    its CUDA-event ms (a mean of 5 after a warm-up step), and under
+    ``torch.profiler`` the device's busy share and the kernels with the
+    most device time, ms a step. Runs on the finished engine's cache."""
+    model = eng.model
+    toks = torch.as_tensor(eng._tokens, device=DEV)
+    pos = LM_MAX_LEN - 8
+
+    def step(i):
+        T.decode_step(model, toks, pos + i, eng.cache)
+
+    step(0)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    for i in range(5):
+        step(i)
+    ev[1].record()
+    torch.cuda.synchronize()
+    ms = ev[0].elapsed_time(ev[1]) / 5
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(PROFILE_STEPS):
+            step(i)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    return {"ms": ms, "busy": busy_us * 1e-6 / wall if busy_us else None,
+            "top": [(e.key[:48], e.self_device_time_total * 1e-3
+                     / PROFILE_STEPS) for e in top]}
+
+
+def astype_tree(tree, dtype):
+    """A nested dict of numpy arrays cast to ``dtype``."""
+    return {k: astype_tree(v, dtype) if isinstance(v, dict)
+            else v.astype(dtype) for k, v in tree.items()}
+
+
+def moe_calls(model, prompts, feed) -> tuple:
+    """One prefill of ``prompts`` and ``MOE_STEPS`` decode steps fed the
+    tokens of ``feed`` (or, when it is empty, the model's own argmax, which
+    it appends): each call's logits, the final cache and each call's
+    seconds, on the host."""
+    cfg = model.cfg
+    cache = T.init_cache(cfg, MOE_BATCH, MOE_PROMPT + MOE_STEPS,
+                         dtype=cfg.dtype, device=model.device)
+    own = not feed
+    outs, secs = [], []
+    for i in range(MOE_STEPS + 1):
+        if model.device.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i == 0:
+            x = torch.as_tensor(prompts, device=model.device)
+            logits, cache = T.prefill(model, x, cache)
+        else:
+            x = feed[i - 1].to(model.device)
+            logits, cache = T.decode_step(model, x, MOE_PROMPT + i - 1,
+                                          cache)
+        logits = logits.cpu()
+        secs.append(time.perf_counter() - t0)
+        outs.append(logits)
+        if own:
+            feed.append(torch.argmax(logits[:, -1], -1)[:, None])
+    return outs, [c.cpu() for c in cache], secs
+
+
+def phase11b() -> None:
+    """moonshot-v1-16b-a3b at full width, ``MOE_LAYERS`` deep: one prefill
+    and ``MOE_STEPS`` decode steps on the card against the same calls on
+    the CPU with the weights copied there (the card's tokens fed to
+    both), in f32 and in f64. The f64 run holds the MoE dispatch on CUDA
+    (``index_add_`` by atomics) to the CPU's: each call's logits and the
+    caches within rtol 1e-4 and atol 1e-4 · max(1, max|x|) (the caches
+    reach 55). Rope computes its angles in f32 in both precisions, as the
+    reference does, and the attention logits reach hundreds (wq, wk drawn
+    with fan_in = the head count, no softcap), so the card's and the CPU's
+    f32 sin/cos, one ulp apart, move the softmax: about 1e-4 of layer 0's
+    attention output. The f32 run adds the products' rounding; its
+    difference is printed, not held."""
+    cfg = lm_config(MOE_ARCH, MOE_LAYERS)
+    t0 = time.perf_counter()
+    card = T.init_params(cfg, torch.Generator(device=DEV).manual_seed(1), DEV)
+    tree = T.params_to_numpy(card)
+    prompts = np.random.default_rng(1).integers(0, cfg.vocab,
+                                                (MOE_BATCH, MOE_PROMPT))
+    for dtype in (torch.float32, torch.float64):
+        c = dataclasses.replace(cfg, dtype=dtype)
+        if dtype == torch.float64:
+            t0 = time.perf_counter()
+            tree = astype_tree(tree, np.float64)
+            card = T.params_from_reference(c, tree, DEV)
+        host = T.params_from_reference(c, tree, "cpu")
+        t_copy = time.perf_counter() - t0
+        feed = []
+        got = moe_calls(card, prompts, feed)
+        want = moe_calls(host, prompts, feed)
+        pairs = ([(f"call {i} logits", a, b)
+                  for i, (a, b) in enumerate(zip(got[0], want[0]))]
+                 + [("k cache", got[1][0], want[1][0]),
+                    ("v cache", got[1][1], want[1][1])])
+        if dtype == torch.float64:
+            for what, a, b in pairs:
+                np.testing.assert_allclose(
+                    a.numpy(), b.numpy(), rtol=1e-4,
+                    atol=1e-4 * max(1.0, float(b.abs().max())),
+                    err_msg=f"11b f64 {what}")
+        err_l = max(max_abs_err(a, b) for _, a, b in pairs[:-2])
+        err_kv = max(max_abs_err(a, b) for _, a, b in pairs[-2:])
+        held = "within rtol 1e-4, atol 1e-4 · max(1, max|x|) of the " \
+            "CPU's" if dtype == torch.float64 else "not held"
+        log(f"11b: {cfg.name} at full width (d {cfg.d_model}, "
+            f"{cfg.moe.n_experts} experts top-{cfg.moe.top_k}, "
+            f"{cfg.moe.n_shared} shared), {cfg.n_layers} of 48 layers, "
+            f"{str(dtype)[6:]}, {param_bytes(card):,} bytes: prefill "
+            f"{MOE_BATCH} x {MOE_PROMPT} and {MOE_STEPS} decode_steps, card "
+            f"{1e3 * got[2][0]:.3f} ms + {1e3 * np.mean(got[2][1:]):.3f} ms "
+            f"a step, CPU {want[2][0]:.3f}s + {np.mean(want[2][1:]):.3f}s a "
+            f"step (weights placed in {t_copy:.3f}s); card vs CPU max abs "
+            f"err: logits {err_l:.3e} (max|logit| "
+            f"{float(want[0][-1].abs().max()):.3f}), caches {err_kv:.3e} "
+            f"(max|k| {float(want[1][0].abs().max()):.3f}); {held}")
+        if dtype == torch.float64:
+            layer0_check(card, host, prompts)
+        del card, host
+        torch.cuda.empty_cache()
+    del tree
+
+
+def layer0_check(card, host, prompts) -> None:
+    """Layer 0's attention and MoE on the card against the CPU on one
+    identical f64 input each: the MoE dispatch within 1e-6 · max(1,
+    max|x|), attention (rope's f32 sin/cos one ulp apart, logits in the
+    hundreds) within 1e-4 · max(1, max|x|)."""
+    pos = torch.arange(MOE_PROMPT).expand(MOE_BATCH, MOE_PROMPT)
+    bc, bh = card.layers[0], host.layers[0]
+    x = LL.embed_tokens(host.head(), torch.as_tensor(prompts))
+    h = bh.norm_attn(x)
+    a_h, _ = bh.attn(h, pos)
+    a_c, _ = bc.attn(h.to(DEV), pos.to(DEV))
+    m_in = bh.norm_mlp(x + a_h)
+    m_h, m_c = bh.moe(m_in), bc.moe(m_in.to(DEV))
+    out = []
+    for what, got, want, tol in (("attention", a_c, a_h, 1e-4),
+                                 ("MoE", m_c, m_h, 1e-6)):
+        got = got.cpu()
+        scale = max(1.0, float(want.abs().max()))
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
+                                   atol=tol * scale,
+                                   err_msg=f"11b layer 0 {what}")
+        out.append(f"{what} {max_abs_err(got, want):.3e} (max|x| "
+                   f"{scale:.3f}, held at {tol} of it)")
+    log(f"11b: layer 0 on one identical f64 input, card vs CPU max abs "
+        f"err: {'; '.join(out)}")
+
+
+def phase11c() -> None:
+    """``launch.serve.main`` on each architecture's smoke config, on the
+    card and on the CPU: the printed line, the shape, the same token ids
+    (a row may differ from its first near tie on, judged on the CPU's
+    logits)."""
+    for arch in ARCHS:
+        argv = ["--arch", arch, "--smoke"]
+        cfg = get_arch(arch).config(smoke=True)
+        out = {}
+        for dev in ("cuda", "cpu"):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                out[dev] = lm_serve.main(argv + ["--device", dev])
+            line = buf.getvalue().splitlines()[0]
+            if not line.startswith(f"[serve] arch={cfg.name} batch=4 "
+                                   f"prompt=32 gen=16 tok/s "):
+                raise AssertionError(f"11c {arch} {dev}: {line!r}")
+            if out[dev].shape != (4, 16):
+                raise AssertionError(f"11c {arch} {dev}: {out[dev].shape}")
+            if dev == "cuda":
+                log(f"11c: {line}")
+        ties = 0
+        if not np.array_equal(out["cuda"], out["cpu"]):
+            model, prompts = lm_serve.model_and_prompts(cfg, 4, 32, "cpu")
+            _, logits = lm_serve.generate(model, prompts, 16)
+            for r in range(4):
+                diff = np.flatnonzero(out["cuda"][r] != out["cpu"][r])
+                if diff.size:
+                    j = int(diff[0])
+                    tie_or_fail(logits[r, j], int(out["cuda"][r, j]),
+                                int(out["cpu"][r, j]), f"11c {arch} row {r}")
+                    ties += 1
+        log(f"11c: {arch} --device cuda == --device cpu token ids "
+            f"({ties} row(s) from a near tie on)")
+
+
 def graph(scale: int):
     g, _ = rmat(scale, 16, seed=0, weighted=True, max_weight=100
                 ).remove_isolated()
@@ -2349,6 +2719,27 @@ def main() -> None:
     t10 = time.perf_counter()
     phase10(lam, launches)
     log(f"phase 10 in {time.perf_counter() - t10:.1f}s; the script in "
+        f"{time.perf_counter() - t_start:.1f}s")
+
+    # 11. LM serving
+    t11 = time.perf_counter()
+    torch.cuda.empty_cache()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    log(f"11: torch.backends.cuda.matmul.allow_tf32 = {tf32}, float32 "
+        f"matmul precision {torch.get_float32_matmul_precision()!r}; "
+        f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated")
+    if tf32:
+        raise AssertionError("11: TF32 is on; the LM path is held in f32")
+    reset_counts()
+    phase11a()
+    torch.cuda.empty_cache()
+    phase11b()
+    torch.cuda.empty_cache()
+    phase11c()
+    ran = {name: w.launches for name, w in WRAPPERS.items() if w.launches}
+    if ran:
+        raise AssertionError(f"11: the LM path launched BC kernels: {ran}")
+    log(f"phase 11 in {time.perf_counter() - t11:.1f}s; the script in "
         f"{time.perf_counter() - t_start:.1f}s")
 
     rows = [{"name": name, "route": "cuda", "source": k["source"],

@@ -1,0 +1,6 @@
+"""Architectures × input-shape cells: the LM half of ``repro.configs``."""
+from repro_torch.configs.base import ArchSpec, Cell, StepBundle
+from repro_torch.configs.registry import ARCHS, all_cells, get_arch
+
+__all__ = ["ArchSpec", "Cell", "StepBundle", "ARCHS", "all_cells",
+           "get_arch"]

@@ -15,8 +15,10 @@ Three layers, outermost first:
   ``BCResponse``s (JSON round-trippable, optionally checkpointed).
 
 A copy of ``repro.serve`` over ``repro_torch.bc``, on the card by
-default (``BCService(device="cuda")``). ``repro.serve.engine`` (the LM
-scaffolding) is not ported: it belongs to slice 7 of ROADMAP.md.
+default (``BCService(device="cuda")``). Beside the BC stack,
+``engine.ServeEngine`` is the LM's continuous-batching engine over
+``repro_torch.models.transformer`` (slot-based prefill and decode on its
+model's device; ``launch.serve`` drives the same model without it).
 """
 from repro_torch.serve.bc_service import BCRequest, BCResponse, BCService
 from repro_torch.serve.cache import HIT, MISS, REFINE, CacheEntry, ResultCache

@@ -22,7 +22,10 @@ from repro_torch.bc import (BCQuery, ExecutionConfig, build_executor, plan,
 from repro_torch.core.adjacency import dense_adj_from_graph
 from repro_torch.core.mfbc import mfbc
 from repro_torch.graphs.generators import path_graph
-from repro_torch.launch import bc_run
+from repro_torch.configs import get_arch
+from repro_torch.launch import bc_run, serve
+from repro_torch.models import transformer as T
+from repro_torch.serve.engine import ServeEngine
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -64,6 +67,12 @@ _MODULES = {
     # slice 7's fault-tolerance half: checkpoints, restarts, elastic n_b
     "repro_torch.train", "repro_torch.train.checkpoint",
     "repro_torch.train.fault", "repro_torch.train.elastic",
+    # slice 7a: LM serving
+    "repro_torch.models", "repro_torch.models.layers",
+    "repro_torch.models.transformer", "repro_torch.configs",
+    "repro_torch.configs.base", "repro_torch.configs.lm_archs",
+    "repro_torch.configs.registry", "repro_torch.serve.engine",
+    "repro_torch.launch.serve",
 }
 
 _BANNED = re.compile(r"^\s*(?:import|from)\s+(?:jax|repro)\b", re.MULTILINE)
@@ -148,3 +157,12 @@ def test_entry_points_default_to_the_card(monkeypatch):
         solve(g, q)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         build_executor(g, plan(g, q, n_devices=1))
+    cfg = get_arch("gemma2-27b").config(smoke=True)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        T.init_params(cfg, torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        T.init_cache(cfg, 1, 8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServeEngine(T.Transformer(cfg), n_slots=1, max_len=8)
+    with pytest.raises(SystemExit, match="--device cpu"):
+        serve.main(["--arch", "gemma2-27b", "--smoke"])
