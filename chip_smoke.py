@@ -198,6 +198,41 @@ order; any failed check raises and the script exits non-zero:
     Phase 11 runs none of the three kernels: the LM's products are
     ``torch.matmul`` / ``torch.einsum``, as the reference computes them
     outside any Pallas kernel. It fails if one of them launched.
+12. LM training (``repro_torch.train.train_lib``, ``optim``,
+    ``launch.train``), f32 with TF32 off (printed; the phase fails if it
+    is on):
+    a. gemma2-27b at its full width, 4 of its 46 layers (3.445 B
+       parameters; weights, gradients and both AdamW moments in f32 are
+       55.1 GB), remat full, CE in 8 chunks, weights drawn on the card
+       from a seeded CUDA generator, one sequence of 4096 tokens a step
+       from ``LMPipeline`` (seed 0), ``launch.train``'s AdamW (lr 3e-4,
+       warm-up over the run, clip 1.0). First step 0's gradient against
+       the loss along ``g/|g|``: central differences at two step sizes
+       (the loss moved by about 1e-2 and 1e-3), the closer within 1e-2 of
+       |g|. Then 6 steps of ``make_lm_train_step``: every loss finite and
+       the last below the first. Printed: the state's bytes, step 0's ms,
+       the median ms of steps 1-5 (host clock around a synced step),
+       tokens/s, the model FLOPs of a step (6·N·B·S) and the TFLOP/s they
+       give beside 67 TFLOP/s f32, peak device memory, the optimizer
+       alone by CUDA events beside its bound (28 B a parameter at 3.35
+       TB/s), whether step 0 repeats the check's loss and grad norm
+       bitwise, and one step under ``torch.profiler`` (busy share, top
+       kernels);
+    b. moonshot-v1-16b-a3b at its full width, 1 of 48 layers: whether
+       step 0 run twice from one state on the card is bitwise equal (the
+       MoE dispatch adds by atomics); then one step of the train cell's
+       AdamW on 2 x 256 tokens on the card and on the CPU from one state,
+       in f32 and f64; in f64 the loss, the grad norm and every updated
+       parameter within rtol 1e-4, atol 1e-4 · max(1, max|x|); m and the
+       updates' directions printed, and the f32 differences;
+    c. ``launch.train.main(["--arch", a, "--smoke", "--steps", "20",
+       "--device", d])`` for the five architectures on the card and on
+       the CPU: the first 8 losses within rtol 1e-4;
+    d. ``launch.train --arch gemma2-27b --smoke --compress int8
+       --ckpt-dir`` on the card with failures at steps 4 and 8 against the
+       run without them: the final checkpoints' parameters within rtol
+       1e-6.
+    Phase 12 runs none of the three kernels either.
 
 Each main-path run (phases 3, 4, 5a, 5b on the dense kernels, 6c and 6d
 on the sparse relax, every run of 7a, 7c and 7d on its backend's
@@ -215,6 +250,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import datetime
+import gc
 import io
 import json
 import multiprocessing
@@ -283,6 +319,12 @@ from repro_torch.launch import serve as lm_serve  # noqa: E402
 from repro_torch.models import layers as LL  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
+from repro_torch.data.pipeline import LMDataConfig, LMPipeline  # noqa: E402
+from repro_torch.launch import train as lm_train  # noqa: E402
+from repro_torch.optim import adamw  # noqa: E402
+from repro_torch import tree as tree_lib  # noqa: E402
+from repro_torch.train.train_lib import (make_lm_train_step,  # noqa: E402
+                                         value_and_grad)
 
 INF = float("inf")
 DEV = torch.device("cuda")
@@ -2293,22 +2335,30 @@ def decode_profile(eng) -> dict:
     ev[1].record()
     torch.cuda.synchronize()
     ms = ev[0].elapsed_time(ev[1]) / 5
+    out = profiled(lambda: [step(i) for i in range(PROFILE_STEPS)],
+                   PROFILE_STEPS, top=6, width=48)
+    return {"ms": ms, **out}
+
+
+def profiled(run, per: int, top: int, width: int) -> dict:
+    """``run()`` under ``torch.profiler``: its wall time, the device's busy
+    share of it, and the ``top`` kernels by device time (ms over ``per``,
+    names cut to ``width``)."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for i in range(PROFILE_STEPS):
-            step(i)
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in kernels)
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
-    return {"ms": ms, "busy": busy_us * 1e-6 / wall if busy_us else None,
-            "top": [(e.key[:48], e.self_device_time_total * 1e-3
-                     / PROFILE_STEPS) for e in top]}
+    best = sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]
+    return {"wall": wall, "busy": busy_us * 1e-6 / wall if busy_us else None,
+            "top": [(e.key[:width], e.self_device_time_total * 1e-3 / per)
+                    for e in best]}
 
 
 def astype_tree(tree, dtype):
@@ -2469,6 +2519,403 @@ def phase11c() -> None:
                     ties += 1
         log(f"11c: {arch} --device cuda == --device cpu token ids "
             f"({ties} row(s) from a near tie on)")
+
+
+# 12. LM training at gemma2-27b's full width. Only depth and batch are cut:
+# training holds 16 B a parameter (weights, gradients, m, v in f32), so 4
+# layers (3.445 B parameters, 55.1 GB) fit the card and 8 (91.4 GB) do not.
+TRAIN_ARCH, TRAIN_LAYERS, TRAIN_SEQ = "gemma2-27b", 4, 4096
+TRAIN_STEPS, TRAIN_CHUNKS = 6, 8
+F32_PEAK = 67e12  # H100 SXM f32 FLOP/s outside the tensor cores
+# the finite-difference steps move the loss by about these: the larger
+# meets the loss's curvature, the smaller its f32 rounding
+FD_MOVES = (1e-2, 1e-3)
+FD_TOL = 1e-2
+OPT_REPEATS = 3
+TRAIN_MOE_LAYERS, TRAIN_MOE_BATCH, TRAIN_MOE_SEQ = 1, 2, 256
+LAUNCH_STEPS, LAUNCH_HELD = 20, 8  # 12c: run 20 steps, hold the first 8
+
+
+def train_opt(steps: int) -> adamw.AdamWConfig:
+    """``launch.train``'s AdamW settings for a run of ``steps``."""
+    return adamw.AdamWConfig(lr=3e-4, warmup_steps=min(20, steps),
+                             total_steps=steps)
+
+
+def tree_bytes(tree) -> int:
+    return sum(x.numel() * x.element_size() for _, x in tree_lib.leaves(tree))
+
+
+def on_card(batch: dict) -> tuple:
+    return tuple(torch.as_tensor(batch[k], device=DEV).long()
+                 for k in ("tokens", "targets"))
+
+
+def displaced(params, d, step: float) -> float:
+    """Moves ``params`` by ``step · d`` in place; returns d · (the move
+    the rounding to f32 made), which ``step · |d|²`` only approximates."""
+    dot = 0.0
+    with torch.no_grad():
+        for (_, p), (_, x) in zip(tree_lib.leaves(params),
+                                  tree_lib.leaves(d)):
+            new = torch.add(p, x, alpha=step)
+            dot += float(torch.dot((new - p).reshape(-1), x.reshape(-1)))
+            p.copy_(new)
+            del new
+    return dot
+
+
+def gradient_fd_check(cfg, batch) -> dict:
+    """Step 0's gradient ``g`` against the loss along ``d = g/|g|``:
+    ``(L(θ+εd) − L(θ−εd)) / (2ε)`` against ``|g|``, with ε = move / |g|
+    for each move of ``FD_MOVES``; held where the closer of the two is
+    within ``FD_TOL``. The moves are made in f32 and read back exactly,
+    so the quotient divides by the moves made (``displaced``); the
+    nominal one is printed beside it. θ is redrawn from its seed for each
+    side."""
+    toks, tgts = on_card(batch)
+
+    def loss_of(p):
+        return T.loss_fn((cfg, p), toks, tgts, chunks=TRAIN_CHUNKS)
+
+    def draw():
+        return T.init_tree(cfg, torch.Generator(device=DEV).manual_seed(0),
+                           DEV)
+
+    params = draw()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss0, d = value_and_grad(loss_of, params)
+    gnorm = adamw.global_norm(d)
+    torch.cuda.synchronize()
+    t_vag = time.perf_counter() - t0
+    peak_vag = torch.cuda.max_memory_allocated()
+    with torch.no_grad():
+        for _, x in tree_lib.leaves(d):
+            x.div_(gnorm)
+    g = float(gnorm)
+    rels = []
+    for i, move in enumerate(FD_MOVES):
+        eps = move / g
+        out = {}
+        for sign in (1, -1):
+            if i or sign < 0:  # θ was moved: draw it again
+                del params
+                params = draw()
+            moved = displaced(params, d, sign * eps)
+            with torch.no_grad():
+                out[sign] = (float(loss_of(params)), abs(moved))
+        fd = (out[1][0] - out[-1][0]) / (out[1][1] + out[-1][1])
+        nominal = (out[1][0] - out[-1][0]) / (2 * eps)
+        rels.append(abs(fd - g) / g)
+        log(f"12a: gradient check at step 0, loss move {move}: ε "
+            f"{eps:.4e}, L(θ+εd) {out[1][0]:.7f}, L(θ−εd) {out[-1][0]:.7f}; "
+            f"directional derivative {fd:.6e} over the moves made "
+            f"({(out[1][1] + out[-1][1]) / (2 * eps):.6f} of 2ε), "
+            f"{nominal:.6e} over 2ε; relative difference from |g| "
+            f"{rels[-1]:.3e}")
+    del params, d
+    log(f"12a: |g| {g:.6e}, loss {float(loss0):.7f}; the closer "
+        f"directional derivative within {min(rels):.3e} of |g| (held at "
+        f"{FD_TOL}); value_and_grad {t_vag:.3f}s, peak "
+        f"{peak_vag / 2**30:.3f} GiB")
+    if not min(rels) <= FD_TOL:
+        raise AssertionError(f"12a: the gradient disagrees with the loss: "
+                             f"relative differences {rels}")
+    return {"loss": float(loss0), "grad_norm": g}
+
+
+def optimizer_ms(opt, state) -> list:
+    """``adamw.update`` alone on ``state`` (CUDA events), fed constant
+    gradients made before each timed call."""
+    out = []
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    for _ in range(OPT_REPEATS):
+        grads = tree_lib.tree_map(lambda p: torch.full_like(p, 1e-6),
+                                  state["params"])
+        torch.cuda.synchronize()
+        ev[0].record()
+        adamw.update(opt, grads, state["opt"], state["params"])
+        ev[1].record()
+        torch.cuda.synchronize()
+        out.append(ev[0].elapsed_time(ev[1]))
+        del grads
+    return out
+
+
+def phase12a() -> None:
+    """``make_lm_train_step`` on gemma2-27b at full width, ``TRAIN_LAYERS``
+    deep, remat full, chunked CE, f32: the gradient check, then
+    ``TRAIN_STEPS`` steps over ``LMPipeline``; their times, the
+    optimizer's alone and one step under the profiler."""
+    cfg = lm_config(TRAIN_ARCH, TRAIN_LAYERS)
+    if cfg.remat != "full":
+        raise AssertionError(f"12a: remat {cfg.remat!r}")
+    opt = train_opt(TRAIN_STEPS)
+    pipe = LMPipeline(LMDataConfig(vocab=cfg.vocab, batch=1, seq=TRAIN_SEQ,
+                                   seed=0))
+    torch.cuda.reset_peak_memory_stats()
+    fd = gradient_fd_check(cfg, pipe.batch(0))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    init_fn, step_fn = make_lm_train_step(cfg, opt, device=DEV,
+                                          chunks=TRAIN_CHUNKS)
+    t0 = time.perf_counter()
+    state = init_fn(torch.Generator(device=DEV).manual_seed(0))
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    nbytes = tree_bytes(state)
+    n = cfg.n_params()
+    if tree_bytes(state["params"]) != 4 * n:
+        raise AssertionError(f"12a: {tree_bytes(state['params'])} bytes of "
+                             f"parameters, {4 * n} expected")
+    secs, metrics = [], []
+    for k in range(TRAIN_STEPS):
+        batch = pipe.batch(k)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        m = {key: float(v) for key, v in m.items()}
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        metrics.append(m)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [m["loss"] for m in metrics]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"12a: losses {losses}")
+    same = (metrics[0]["loss"] == fd["loss"],
+            metrics[0]["grad_norm"] == fd["grad_norm"])
+    med = float(np.median(secs[1:]))
+    flops = 6.0 * cfg.n_active_params() * 1 * TRAIN_SEQ
+    opt_ms = optimizer_ms(opt, state)
+    opt_bound = 28.0 * n / PEAK_BYTES_PER_S * 1e3
+    batch = pipe.batch(TRAIN_STEPS)
+    profile = profiled(lambda: step_fn(state, batch), 1, top=8, width=56)
+    log(f"12a: {cfg.name} at full width, {cfg.n_layers} of 46 layers, remat "
+        f"{cfg.remat}, CE in {TRAIN_CHUNKS} chunks, f32: {n:,} parameters; "
+        f"train state {nbytes:,} bytes ({nbytes / 2**30:.3f} GiB: params, "
+        f"m, v) drawn on the card in {t_init:.3f}s; one sequence of "
+        f"{TRAIN_SEQ} tokens a step (LMPipeline seed 0), AdamW lr 3e-4, "
+        f"warm-up {opt.warmup_steps}, clip 1.0")
+    log(f"12a: losses " + ", ".join(f"{x:.6f}" for x in losses)
+        + "; grad norms " + ", ".join(f"{m['grad_norm']:.4f}"
+                                      for m in metrics)
+        + "; lr " + ", ".join(f"{m['lr']:.3e}" for m in metrics))
+    log(f"12a: step 0 {1e3 * secs[0]:.3f} ms (cuBLAS set-up), steps 1-"
+        f"{TRAIN_STEPS - 1} median {1e3 * med:.3f} ms (min "
+        f"{1e3 * min(secs[1:]):.3f}, max {1e3 * max(secs[1:]):.3f}); "
+        f"{TRAIN_SEQ / med:.3f} tokens/s; model FLOPs a step "
+        f"6·N_active·B·S = {flops:.4e}: {flops / med / 1e12:.3f} TFLOP/s, "
+        f"{flops / med / F32_PEAK:.4f} of 67 TFLOP/s f32; peak device "
+        f"memory {peak / 2**30:.3f} GiB ({peak:,} bytes)")
+    log(f"12a: the optimizer alone (adamw.update, CUDA events, "
+        f"{OPT_REPEATS} calls): " + ", ".join(f"{x:.3f}" for x in opt_ms)
+        + f" ms against its bound {opt_bound:.3f} ms (28 B a parameter at "
+        f"3.35 TB/s)")
+    log(f"12a: step 0 repeats the gradient check's loss and grad norm "
+        f"bitwise: {same[0]}, {same[1]}")
+    log(f"12a: one step under torch.profiler: wall {profile['wall']:.3f}s, "
+        f"device busy "
+        + (f"{profile['busy']:.4f} of it" if profile["busy"]
+           else "not measured (the profiler saw no device time)")
+        + "; by kernel, ms: "
+        + "; ".join(f"{name} {ms:.3f}" for name, ms in profile["top"]))
+
+
+def leaf_pairs(a, b):
+    for (p, x), (q, y) in zip(tree_lib.leaves(a), tree_lib.leaves(b)):
+        assert p == q, (p, q)
+        yield "/".join(p), x, y
+
+
+def card_vs_cpu(got, want, old, dtype, what: str) -> dict:
+    """Each leaf of ``got`` (on the card) against ``want`` (on the CPU,
+    moved to the card leaf by leaf): the largest difference, held in f64
+    within rtol 1e-4, atol 1e-4 · max(1, max|x|) when ``old`` is None
+    (the parameters), else over each leaf's scale (printed only); with
+    ``old``, also the smallest cosine between the two updates."""
+    out = {"err": 0.0, "rel": 0.0, "cos": 1.0}
+    for name, x, y in leaf_pairs(got, want):
+        y = y.to(DEV)
+        diff = (x - y).abs()
+        scale = float(y.abs().max())
+        out["err"] = max(out["err"], float(diff.max()))
+        out["rel"] = max(out["rel"], float(diff.max()) / max(scale, 1e-30))
+        if what == "params" and dtype == torch.float64:
+            atol = 1e-4 * max(1.0, scale)
+            if not bool((diff <= atol + 1e-4 * y.abs()).all()):
+                raise AssertionError(f"12b f64 {name}: card vs CPU "
+                                     f"{float(diff.max())} (atol {atol})")
+        if old is not None:
+            o = old[name].to(DEV, torch.float64)
+            du, dw = x.double() - o, y.double() - o
+            out["cos"] = min(out["cos"], float(
+                (du * dw).sum() / (du.norm() * dw.norm())))
+        del y, diff
+    return out
+
+
+def phase12b() -> None:
+    """moonshot-v1-16b-a3b at full width, ``TRAIN_MOE_LAYERS`` deep: one
+    ``make_lm_train_step`` step (the train cell's AdamW: lr 3e-4 after 100
+    warm-up steps) on 2 × 256 tokens on the card and on the CPU, from one
+    state copied to both, in f32 and in f64. In f64 the loss, the grad
+    norm and every updated parameter are held within rtol 1e-4, atol 1e-4
+    · max(1, max|x|); m (0.1 × the clipped gradient) and the cosine of
+    each leaf's update are printed beside. The f32 difference is
+    printed."""
+    cfg = lm_config(MOE_ARCH, TRAIN_MOE_LAYERS)
+    opt = adamw.AdamWConfig()
+    toks = np.random.default_rng(2).integers(
+        0, cfg.vocab, (TRAIN_MOE_BATCH, TRAIN_MOE_SEQ + 1)).astype(np.int32)
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    with open("/proc/meminfo") as f:
+        mem = {ln.split(":")[0]: ln.split()[1] for ln in f}
+    log(f"12b: host memory {int(mem['MemTotal']) / 2**20:.1f} GiB, "
+        f"available {int(mem['MemAvailable']) / 2**20:.1f} GiB")
+    init_fn, card_step = make_lm_train_step(cfg, opt, device=DEV)
+    card = init_fn(torch.Generator(device=DEV).manual_seed(1))
+    host = {"/".join(p): x.cpu() for p, x in tree_lib.leaves(card["params"])}
+    # step 0 twice from one state on the card: the MoE adds by atomics
+    twin = tree_lib.tree_map(torch.clone, card)
+    card_step(card, batch)
+    card_step(twin, batch)
+    repeat = all(torch.equal(x, y) for _, x, y in leaf_pairs(card, twin))
+    del card, twin
+    torch.cuda.empty_cache()
+    log(f"12b: step 0 run twice from one state on the card is bitwise "
+        f"equal: {repeat}")
+    for dtype in (torch.float32, torch.float64):
+        c = dataclasses.replace(cfg, dtype=dtype)
+        t0 = time.perf_counter()
+        states = {}
+        for d in (DEV, "cpu"):
+            params = tree_lib.unflatten(
+                (tuple(k.split("/")), x.to(d, dtype, copy=True))
+                for k, x in host.items())
+            states[d] = {"params": params, "opt": adamw.init_state(params)}
+        t_copy = time.perf_counter() - t0
+        secs, ms = {}, {}
+        for d, st in states.items():
+            _, step = make_lm_train_step(c, opt, device=d)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, m = step(st, batch)
+            ms[d] = {k: float(v) for k, v in m.items()}
+            secs[d] = time.perf_counter() - t0
+        got, want = states[DEV], states["cpu"]
+        par = card_vs_cpu(got["params"], want["params"], host, dtype,
+                          "params")
+        mom = card_vs_cpu(got["opt"]["m"], want["opt"]["m"], None, dtype,
+                          "m")
+        a, b = ms[DEV], ms["cpu"]
+        if dtype == torch.float64:
+            for k in ("loss", "grad_norm"):
+                np.testing.assert_allclose(a[k], b[k], rtol=1e-4,
+                                           err_msg=f"12b f64 {k}")
+        held = "held within rtol 1e-4, atol 1e-4 · max(1, max|x|)" \
+            if dtype == torch.float64 else "not held"
+        log(f"12b: {cfg.name} at full width ({cfg.moe.n_experts} experts "
+            f"top-{cfg.moe.top_k}, {cfg.moe.n_shared} shared), "
+            f"{cfg.n_layers} of 48 layers, {cfg.n_params():,} parameters, "
+            f"{str(dtype)[6:]} (states placed in {t_copy:.3f}s): one step "
+            f"on {TRAIN_MOE_BATCH} x {TRAIN_MOE_SEQ} tokens, card "
+            f"{1e3 * secs[DEV]:.3f} ms, CPU {secs['cpu']:.3f}s; loss card "
+            f"{a['loss']:.9f} CPU {b['loss']:.9f}, grad norm "
+            f"{a['grad_norm']:.9f} / {b['grad_norm']:.9f}; card vs CPU: "
+            f"params max abs err {par['err']:.3e} ({held}), m "
+            f"{mom['rel']:.3e} of its scale, smallest cosine of a leaf's "
+            f"update {par['cos']:.6f}")
+        del states, got, want
+        torch.cuda.empty_cache()
+    del host
+
+
+def phase12c() -> None:
+    """``launch.train.main`` on each architecture's smoke config, on the
+    card and on the CPU, ``LAUNCH_STEPS`` steps (so that the loss has
+    fallen by the last: 8 leave command-r's and qwen3's smoke losses
+    within their batches' spread on the CPU): the first ``LAUNCH_HELD``
+    losses within rtol 1e-4, the largest difference of all printed."""
+    for arch in ARCHS:
+        argv = ["--arch", arch, "--smoke", "--steps", str(LAUNCH_STEPS)]
+        cfg = get_arch(arch).config(smoke=True)
+        out, secs = {}, {}
+        for dev in ("cuda", "cpu"):
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                out[dev] = np.asarray(lm_train.main(argv + ["--device",
+                                                            dev]))
+            secs[dev] = time.perf_counter() - t0
+            line = buf.getvalue().splitlines()[0]
+            if not line.startswith(f"[train] arch={cfg.name} "):
+                raise AssertionError(f"12c {arch} {dev}: {line!r}")
+        rel = np.abs(out["cuda"] - out["cpu"]) / np.abs(out["cpu"])
+        np.testing.assert_allclose(out["cuda"][:LAUNCH_HELD],
+                                   out["cpu"][:LAUNCH_HELD], rtol=1e-4,
+                                   err_msg=f"12c {arch}")
+        log(f"12c: {arch} smoke: {LAUNCH_STEPS} steps, card "
+            f"{secs['cuda']:.3f}s, CPU {secs['cpu']:.3f}s; losses "
+            f"{out['cuda'][0]:.6f} -> {out['cuda'][-1]:.6f}; card vs CPU "
+            f"relative: first {LAUNCH_HELD} steps {rel[:LAUNCH_HELD].max():.3e} "
+            f"(held at 1e-4), all {rel.max():.3e}")
+
+
+def phase12d() -> None:
+    """``launch.train --arch gemma2-27b --smoke --compress int8`` under
+    ``--ckpt-dir`` on the card, with failures injected at steps 4 and 8
+    (before the first save: each restarts from a fresh initial state)
+    against the same run without them: the final checkpoints' parameters
+    within rtol 1e-6."""
+    base = ["--arch", "gemma2-27b", "--smoke", "--compress", "int8",
+            "--device", "cuda"]
+    final = {}
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        for label, extra in (("clean", []), ("failed", ["--fail-at", "4",
+                                                        "8"])):
+            d = os.path.join(tmp, label)
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                losses = lm_train.main(base + ["--ckpt-dir", d] + extra)
+            final[label] = (ckpt_lib.restore(d)[0], len(losses),
+                            time.perf_counter() - t0)
+    (a, na, ta), (b, nb, tb) = final["clean"], final["failed"]
+    keys = sorted(k for k in a if k.startswith("params/"))
+    err = 0.0
+    for k in keys:
+        np.testing.assert_allclose(b[k], a[k], rtol=1e-6, err_msg=f"12d {k}")
+        err = max(err, float(np.abs(b[k] - a[k]).max()))
+    bitwise = all(np.array_equal(a[k], b[k]) for k in a)
+    log(f"12d: launch.train gemma2 smoke, int8 compression, --ckpt-dir: "
+        f"clean {na} steps in {ta:.3f}s, with failures at 4 and 8 {nb} "
+        f"steps (the restarts re-run 0-3 and 0-7) in {tb:.3f}s; final "
+        f"parameters within rtol 1e-6 (max abs err {err:.3e}; the whole "
+        f"checkpoint bitwise equal: {bitwise})")
+
+
+def phase12() -> None:
+    """Phase 12, f32 with TF32 off: it fails if a BC kernel launched."""
+    # the earlier phases leave reference cycles (11a's timed wrappers
+    # hold its engine, whose model and cache are 23.4 GiB): collect them
+    gc.collect()
+    torch.cuda.empty_cache()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    log(f"12: torch.backends.cuda.matmul.allow_tf32 = {tf32}, float32 "
+        f"matmul precision {torch.get_float32_matmul_precision()!r}; "
+        f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated")
+    if tf32:
+        raise AssertionError("12: TF32 is on; the LM path is held in f32")
+    reset_counts()
+    for part in (phase12a, phase12b, phase12c, phase12d):
+        t0 = time.perf_counter()
+        part()
+        torch.cuda.empty_cache()
+        log(f"{part.__name__} in {time.perf_counter() - t0:.1f}s")
+    ran = {name: w.launches for name, w in WRAPPERS.items() if w.launches}
+    if ran:
+        raise AssertionError(f"12: the LM training path launched BC "
+                             f"kernels: {ran}")
 
 
 def graph(scale: int):
@@ -2740,6 +3187,12 @@ def main() -> None:
     if ran:
         raise AssertionError(f"11: the LM path launched BC kernels: {ran}")
     log(f"phase 11 in {time.perf_counter() - t11:.1f}s; the script in "
+        f"{time.perf_counter() - t_start:.1f}s")
+
+    # 12. LM training
+    t12 = time.perf_counter()
+    phase12()
+    log(f"phase 12 in {time.perf_counter() - t12:.1f}s; the script in "
         f"{time.perf_counter() - t_start:.1f}s")
 
     rows = [{"name": name, "route": "cuda", "source": k["source"],

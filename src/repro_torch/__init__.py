@@ -5,7 +5,9 @@ The package mirrors ``repro``'s layout module for module. It imports
 (betweenness and the other graph metrics, exact and sampled, on one
 device or a mesh of ranks), its serving stack and resumable runs, and
 the LM family that serves through ``serve.engine`` and
-``launch.serve`` (``models``, ``configs``). Entry points default to
+``launch.serve`` and trains through ``train.train_lib`` and
+``launch.train`` (``models``, ``configs``, ``optim``, ``data``). Entry
+points default to
 ``device="cuda"`` and raise on a host without a card; pass
 ``device="cpu"`` to run the plain PyTorch versions of the kernels.
 """

@@ -11,8 +11,10 @@ provides an ``ArchSpec`` with:
   concrete arguments with a check of the outputs.
 
 The reference's bundles also carry abstract, sharded arguments for its
-dry-run, which has no counterpart without XLA (slice 7d). Training cells
-are slice 7b; the GNN, recsys and BC families are slices 7c and 7d.
+dry-run, which has no counterpart without XLA (slice 7d); its mesh
+branch (bf16 weights, int8 moments, chunked CE) waits for it too, so a
+train cell takes the reference's one-device policy: f32 weights and
+moments, plain CE. The GNN, recsys and BC families are slices 7c and 7d.
 """
 from __future__ import annotations
 
@@ -22,6 +24,8 @@ from typing import Any, Callable, Dict, Optional
 import torch
 
 from repro_torch.models import transformer as T
+from repro_torch.optim import adamw
+from repro_torch.train.train_lib import value_and_grad
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,9 +117,31 @@ class LMArch(ArchSpec):
                                  device=generator.device).to(device)
 
         if c.kind == "train":
-            raise NotImplementedError(
-                f"{self.arch_id} {cell.shape_id}: training cells are not "
-                "ported yet (slice 7b of ROADMAP.md)")
+            opt_cfg = adamw.AdamWConfig(moment_dtype="f32")
+
+            def step(params, opt_state, toks, targets):
+                """One AdamW step on the stacked tree ``params``, updated
+                in place with ``opt_state`` (the reference donates both)."""
+                loss, grads = value_and_grad(
+                    lambda p: T.loss_fn((cfg, p), toks, targets), params)
+                params, opt_state, metrics = adamw.update(
+                    opt_cfg, grads, opt_state, params)
+                return params, opt_state, {"loss": loss, **metrics}
+
+            def concrete(generator, device="cuda"):
+                p = T.init_tree(cfg, generator, device)
+                dev = next(iter(p.values())).device
+                toks = tokens(generator, (B, S), dev)
+                return (p, adamw.init_state(p, opt_cfg.moment_dtype), toks,
+                        toks)
+
+            def check(out):
+                _, _, m = out
+                if not bool(torch.isfinite(m["loss"])):
+                    raise AssertionError(f"non-finite loss: {m}")
+
+            return StepBundle(step, trips, 6.0 * n_active * B * S,
+                              concrete_args=concrete, check=check)
 
         if c.kind == "prefill":
             def step(model, toks, cache):

@@ -230,7 +230,10 @@ def moe_block(cfg: MoeConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
 
 def embed_tokens(p: Params, tokens: torch.Tensor, *, scale: bool = False
                  ) -> torch.Tensor:
-    emb = p["embedding"][tokens]
+    # F.embedding, not indexing: its backward sums the rows of repeated
+    # tokens in a fixed order (indexing's ``index_put_`` accumulates in
+    # parallel on the CPU, in an order that varies from run to run)
+    emb = F.embedding(tokens, p["embedding"])
     if scale:
         emb = emb * (p["embedding"].shape[-1] ** 0.5)
     return emb

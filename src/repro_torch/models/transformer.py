@@ -15,27 +15,40 @@ A model is a ``Transformer`` module: the embedding (and untied
 parameter names are the reference tree's paths (``layers.3.attn.wq`` is
 ``params["layers"]["attn"]["wq"][3]``). Entry points:
   * ``init_params(cfg, generator, device)``     — a model with drawn weights
+  * ``init_tree(cfg, generator, device)``       — the same weights as the
+    reference's tree of tensors (layers stacked on dim 0): a train state's
+    parameters
   * ``params_from_reference(cfg, tree, device)`` / ``params_to_numpy(model)``
     — weights from and to the reference's tree (layers stacked on dim 0)
   * ``forward(model, tokens)`` / ``forward_hidden`` — logits / hidden states
+  * ``loss_fn(model, tokens, targets, chunks=)`` — next-token cross entropy
   * ``init_cache`` / ``prefill`` / ``decode_step`` — serving
 
+``forward``, ``forward_hidden`` and ``loss_fn`` take a ``Transformer`` or
+a pair ``(cfg, tree)`` of a config and a stacked tree, which training
+differentiates: each stacked leaf is unbound into its layers once a call.
+``cfg.remat`` checkpoints the layers when autograd records: ``"full"``
+keeps each layer's input only, ``"dots"`` the products' outputs
+(``torch.utils.checkpoint``, non-reentrant; values never change).
+
 The cache is written in place (the reference returns an updated copy);
-``prefill`` and ``decode_step`` return the same tensors. Training
-(``loss_fn``) is slice 7b; the sharding helpers (``abstract_params``,
-``param_logical_axes``, ``cache_abstract``) have no counterpart without a
-mesh of the LM.
+``prefill`` and ``decode_step`` return the same tensors. The sharding
+helpers (``abstract_params``, ``param_logical_axes``, ``cache_abstract``)
+have no counterpart without a mesh of the LM.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Iterator, Optional, Tuple
+import functools
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from repro_torch import resolve_device
+from repro_torch import tree as tree_lib
 from repro_torch.models import layers as L
 
 Params = Dict[str, Any]
@@ -65,7 +78,7 @@ class TransformerConfig:
     # MoE (None -> dense)
     moe: Optional[L.MoeConfig] = None
     dtype: torch.dtype = torch.float32
-    remat: str = "none"  # none | full | dots (read by training, slice 7b)
+    remat: str = "none"  # none | full | dots: what a layer keeps for backward
 
     @property
     def hd(self) -> int:
@@ -173,17 +186,6 @@ def param_shapes(cfg: TransformerConfig) -> Dict[str, Any]:
     return tree
 
 
-def _leaves(tree: Dict[str, Any], prefix: Tuple[str, ...] = ()
-            ) -> Iterator[Tuple[Tuple[str, ...], Any]]:
-    """(path, leaf) in sorted key order, the order ``jax.tree`` flattens
-    a dict in."""
-    for k in sorted(tree):
-        if isinstance(tree[k], dict):
-            yield from _leaves(tree[k], prefix + (k,))
-        else:
-            yield prefix + (k,), tree[k]
-
-
 # ---------------------------------------------------------------------------
 # Modules.
 # ---------------------------------------------------------------------------
@@ -212,27 +214,43 @@ class Block(nn.Module):
         else:
             self.mlp = L.GatedMlp(cfg.mlp, shapes["mlp"], **kw)
 
+    def tree(self) -> Params:
+        """The layer's parameters as the reference's nested dict."""
+        return {k: m.tree() for k, m in self._modules.items()}
+
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
                 kv_cache=None, cache_pos: Optional[int] = None):
-        cfg = self.cfg
-        q_pos = positions if positions.ndim > 1 else positions[None, :]
-        T = kv_cache[0].shape[1] if kv_cache is not None else x.shape[1]
-        kv_pos = torch.arange(T, device=x.device)
-        wmask = kv_pos[None, None, :] > (q_pos[:, :, None] - self.window)
-        ffn = self.mlp if cfg.moe is None else self.moe
+        return block(self.cfg, self.window, self.tree(), x, positions,
+                     kv_cache=kv_cache, cache_pos=cache_pos)
 
-        h = self.norm_attn(x)
-        a, cache = self.attn(h, positions, mask=wmask, kv_cache=kv_cache,
-                             cache_pos=cache_pos)
-        if cfg.block_style == "parallel":
-            return x + a + ffn(self.norm_mlp(x)), cache
-        if cfg.block_style == "sandwich":
-            a = self.norm_attn_post(a)
-        x = x + a
-        m = ffn(self.norm_mlp(x))
-        if cfg.block_style == "sandwich":
-            m = self.norm_mlp_post(m)
-        return x + m, cache
+
+def block(cfg: TransformerConfig, window: int, lp: Params, x: torch.Tensor,
+          positions: torch.Tensor, kv_cache=None,
+          cache_pos: Optional[int] = None):
+    """One layer on its parameters ``lp`` (the reference's layer tree);
+    returns (out, cache)."""
+    q_pos = positions if positions.ndim > 1 else positions[None, :]
+    T = kv_cache[0].shape[1] if kv_cache is not None else x.shape[1]
+    kv_pos = torch.arange(T, device=x.device)
+    wmask = kv_pos[None, None, :] > (q_pos[:, :, None] - window)
+
+    def ffn(h):
+        if cfg.moe is None:
+            return L.gated_mlp(cfg.mlp, lp["mlp"], h)
+        return L.moe_block(cfg.moe, lp["moe"], h)
+
+    h = L.rms_norm(x, lp["norm_attn"]["scale"])
+    a, cache = L.attention(cfg.attn, lp["attn"], h, positions, mask=wmask,
+                           kv_cache=kv_cache, cache_pos=cache_pos)
+    if cfg.block_style == "parallel":
+        return x + a + ffn(L.rms_norm(x, lp["norm_mlp"]["scale"])), cache
+    if cfg.block_style == "sandwich":
+        a = L.rms_norm(a, lp["norm_attn_post"]["scale"])
+    x = x + a
+    m = ffn(L.rms_norm(x, lp["norm_mlp"]["scale"]))
+    if cfg.block_style == "sandwich":
+        m = L.rms_norm(m, lp["norm_mlp_post"]["scale"])
+    return x + m, cache
 
 
 class Transformer(nn.Module):
@@ -290,6 +308,21 @@ def _is_norm_scale(cfg: TransformerConfig, shape) -> bool:
         len(shape) == 1 or (len(shape) == 2 and shape[0] == cfg.n_layers))
 
 
+def _draw(cfg: TransformerConfig, generator: torch.Generator):
+    """(path, value) of each leaf of the stacked tree, in sorted key
+    order, on ``generator``'s device."""
+    for path, shape in tree_lib.leaves(param_shapes(cfg)):
+        if _is_norm_scale(cfg, shape):
+            value = torch.zeros(shape, dtype=cfg.dtype,
+                                device=generator.device)
+        else:
+            fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+            value = torch.randn(shape, generator=generator,
+                                device=generator.device, dtype=cfg.dtype)
+            value *= 1.0 / np.sqrt(max(fan_in, 1))
+        yield path, value
+
+
 def init_params(cfg: TransformerConfig, generator: torch.Generator,
                 device="cuda") -> Transformer:
     """A model whose weights are drawn as the reference's ``init_params``
@@ -300,16 +333,18 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
     device, then moved to ``device``), not ``jax.random``'s: parity with
     the reference goes through ``params_from_reference``."""
     model = Transformer(cfg, device)
-    for path, shape in _leaves(param_shapes(cfg)):
-        if _is_norm_scale(cfg, shape):
-            value = torch.zeros(shape, dtype=cfg.dtype)
-        else:
-            fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
-            value = torch.randn(shape, generator=generator,
-                                device=generator.device, dtype=cfg.dtype)
-            value *= 1.0 / np.sqrt(max(fan_in, 1))
+    for path, value in _draw(cfg, generator):
         _load(model, path, value)
     return model
+
+
+def init_tree(cfg: TransformerConfig, generator: torch.Generator,
+              device="cuda") -> Params:
+    """``init_params``'s weights (the same draws) as the reference's tree
+    of tensors, layers stacked on dim 0, on ``device``."""
+    dev = resolve_device(device)
+    return tree_lib.unflatten((path, value.to(dev))
+                              for path, value in _draw(cfg, generator))
 
 
 def params_from_reference(cfg: TransformerConfig, tree: Params,
@@ -318,7 +353,7 @@ def params_from_reference(cfg: TransformerConfig, tree: Params,
     ``cfg.dtype``, layers stacked on dim 0), bit for bit."""
     model = Transformer(cfg, device)
     want = torch.empty((), dtype=cfg.dtype).numpy().dtype
-    for path, shape in _leaves(param_shapes(cfg)):
+    for path, shape in tree_lib.leaves(param_shapes(cfg)):
         arr = tree
         for k in path:
             arr = arr[k]
@@ -335,15 +370,13 @@ def params_to_numpy(model: Transformer) -> Params:
     """The reference's parameter tree of ``model``'s weights as numpy
     arrays (layers stacked on dim 0); the inverse of
     ``params_from_reference``."""
-    out: Params = {}
-    for path, _ in _leaves(param_shapes(model.cfg)):
+    def leaf(path):
         parts = [model.get_parameter(n).detach().cpu().numpy()
                  for n in _targets(model.cfg, path)]
-        node = out
-        for k in path[:-1]:
-            node = node.setdefault(k, {})
-        node[path[-1]] = np.stack(parts) if path[0] == "layers" else parts[0]
-    return out
+        return np.stack(parts) if path[0] == "layers" else parts[0]
+
+    return tree_lib.unflatten((path, leaf(path)) for path, _ in
+                              tree_lib.leaves(param_shapes(model.cfg)))
 
 
 # ---------------------------------------------------------------------------
@@ -351,22 +384,138 @@ def params_to_numpy(model: Transformer) -> Params:
 # ---------------------------------------------------------------------------
 
 
-def forward_hidden(model: Transformer, tokens: torch.Tensor) -> torch.Tensor:
+Model = Union[Transformer, Tuple[TransformerConfig, Params]]
+
+
+@dataclasses.dataclass
+class _Parts:
+    """A model's parameters as the forward pass reads them."""
+    cfg: TransformerConfig
+    head: Params  # embedding (and lm_head)
+    final_scale: torch.Tensor
+    layers: List[Tuple[int, Params]]  # (window, layer tree) a layer
+
+
+def _unstack(stacked: Params, n: int) -> List[Params]:
+    """A stacked layer tree as ``n`` layer trees: each leaf unbound once
+    (one backward stacks its gradient; an index a layer would allocate a
+    full-size zero gradient a layer)."""
+    out: List[Params] = [{} for _ in range(n)]
+    for k, v in stacked.items():
+        parts = _unstack(v, n) if isinstance(v, dict) else v.unbind(0)
+        for l in range(n):
+            out[l][k] = parts[l]
+    return out
+
+
+def _parts(model: Model) -> _Parts:
+    if isinstance(model, Transformer):
+        return _Parts(model.cfg, model.head(), model.final_norm.scale,
+                      [(b.window, b.tree()) for b in model.layers])
+    cfg, tree = model
+    head = {k: tree[k] for k in ("embedding", "lm_head") if k in tree}
+    windows = cfg.layer_windows().tolist()
+    return _Parts(cfg, head, tree["final_norm"]["scale"],
+                  list(zip(windows, _unstack(tree["layers"], cfg.n_layers))))
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """``remat="dots"``: keep the products without batch dimensions (the
+    reference's ``checkpoint_dots_with_no_batch_dims``). ``torch.einsum``
+    and ``@`` reach aten as ``mm`` or as a ``bmm`` of batch 1 when no
+    operand dimension is batched (the projections, MLPs, router, head),
+    and as a ``bmm`` of batch > 1 when one is (attention's per-(b, kv
+    head) products, the MoE's per-expert products): those recompute."""
+    aten = torch.ops.aten
+    if op is aten.mm.default or (op is aten.bmm.default
+                                 and args[0].shape[0] == 1):
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(cfg: TransformerConfig, fn, *args):
+    """``fn(*args)`` under ``cfg.remat`` when autograd records."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn(*args)
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _dots_policy)
+    elif cfg.remat != "full":
+        raise ValueError(f"remat {cfg.remat!r} (none | full | dots)")
+    return ckpt.checkpoint(fn, *args, use_reentrant=False, **kw)
+
+
+def _layer(cfg, window, lp, x, positions):
+    return block(cfg, window, lp, x, positions)[0]
+
+
+def forward_hidden(model: Model, tokens: torch.Tensor) -> torch.Tensor:
     """Forward pass up to (but excluding) the LM head: (B, S, d)."""
-    cfg = model.cfg
+    return _hidden(_parts(model), tokens)
+
+
+def _hidden(p: _Parts, tokens: torch.Tensor) -> torch.Tensor:
+    cfg = p.cfg
     B, S = tokens.shape
-    x = L.embed_tokens(model.head(), tokens, scale=cfg.scale_embeddings)
+    x = L.embed_tokens(p.head, tokens, scale=cfg.scale_embeddings)
     positions = torch.arange(S, device=tokens.device).expand(B, S)
-    for block in model.layers:
-        x, _ = block(x, positions)
-    return L.rms_norm(x, model.final_norm.scale)
+    for window, lp in p.layers:
+        # the layer's parameters are closed over, so a recompute in the
+        # backward reads the same tensors
+        x = _remat(cfg, functools.partial(_layer, cfg, window, lp), x,
+                   positions)
+    return L.rms_norm(x, p.final_scale)
 
 
-def forward(model: Transformer, tokens: torch.Tensor) -> torch.Tensor:
+def forward(model: Model, tokens: torch.Tensor) -> torch.Tensor:
     """tokens: (B, S) int -> logits (B, S, vocab)."""
-    x = forward_hidden(model, tokens)
-    return L.lm_logits(model.head(), x, cap=model.cfg.final_softcap,
-                       tied=model.cfg.tie_embeddings)
+    p = _parts(model)
+    return L.lm_logits(p.head, _hidden(p, tokens), cap=p.cfg.final_softcap,
+                       tied=p.cfg.tie_embeddings)
+
+
+def _chunk_loss(hx, tx, w, cap):
+    logits = L.softcap(torch.einsum("bsd,dv->bsv", hx, w), cap).float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, tx[..., None])[..., 0]
+    return torch.sum(logz - gold)
+
+
+def loss_fn(model: Model, tokens: torch.Tensor, targets: torch.Tensor, *,
+            chunks: int = 1) -> torch.Tensor:
+    """Next-token cross entropy, a mean over the (B, S) targets.
+
+    ``chunks > 1``: chunked CE — the (B, S, vocab) logits tensor is never
+    materialized whole; each sequence chunk's logits are computed,
+    consumed, and (in the backward, by ``torch.utils.checkpoint``)
+    recomputed. The chunk sums add in chunk order, as the reference's
+    scan does.
+    """
+    targets = targets.long()
+    if chunks <= 1:
+        logits = forward(model, tokens).float()
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, targets[..., None])[..., 0]
+        return torch.mean(logz - gold)
+
+    p = _parts(model)
+    cfg = p.cfg
+    h = _hidden(p, tokens)
+    B, S, D = h.shape
+    assert S % chunks == 0, (S, chunks)
+    hc = h.reshape(B, chunks, S // chunks, D).transpose(0, 1)
+    tc = targets.reshape(B, chunks, S // chunks).transpose(0, 1)
+    w = p.head["embedding"].T if cfg.tie_embeddings else p.head["lm_head"]
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(chunks):
+        if torch.is_grad_enabled():
+            part = ckpt.checkpoint(_chunk_loss, hc[i], tc[i], w,
+                                   cfg.final_softcap, use_reentrant=False)
+        else:
+            part = _chunk_loss(hc[i], tc[i], w, cfg.final_softcap)
+        total = total + part
+    return total / (B * S)
 
 
 # ---------------------------------------------------------------------------

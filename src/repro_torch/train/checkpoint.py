@@ -15,7 +15,9 @@ A port of ``repro/train/checkpoint.py``:
 
 A tree is nested dicts (walked in sorted key order, as
 ``jax.tree_util`` walks them), lists and tuples whose leaves are tensors,
-numpy arrays or scalars; ``None`` is an empty subtree. Since the paths,
+numpy arrays or scalars; ``None`` is an empty subtree. A bfloat16 leaf
+(int8 AdamW's ``v``) is stored as its raw 2-byte words, as ``np.savez``
+stores the reference's (``to_numpy`` / ``from_numpy``). Since the paths,
 the leaf order and the files are the reference's, a checkpoint written by
 either package restores in the other. For BC runs the checkpoint is tiny:
 the cumulative λ, the batch index and the batch size.
@@ -51,10 +53,29 @@ def _flatten(tree) -> Dict[str, Any]:
     return dict(_leaves(tree))
 
 
-def _host(leaf) -> np.ndarray:
+def to_numpy(leaf) -> np.ndarray:
+    """A leaf on the host. numpy has no bfloat16, so a bf16 tensor comes
+    back as its raw 2-byte words (dtype ``V2``), the form in which
+    ``np.savez`` stores the reference's bf16 arrays."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
+        t = leaf.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view("V2")
+        return t.numpy()
     return np.asarray(leaf)
+
+
+def from_numpy(arr: np.ndarray, device, dtype: Optional[torch.dtype] = None
+               ) -> torch.Tensor:
+    """A host array as a tensor on ``device`` (of ``dtype``, default its
+    own). Raw 2-byte words (``V2``, or ml_dtypes' bfloat16, whose kind is
+    also ``V``) are read as bfloat16, bit for bit."""
+    arr = np.asarray(arr)
+    if arr.dtype.kind == "V" and arr.dtype.itemsize == 2:
+        t = torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(arr))
+    return t.to(device=device, dtype=dtype or t.dtype)
 
 
 def save(ckpt_dir: str, step: int, tree, *, keep: int = 3) -> str:
@@ -68,7 +89,7 @@ def save(ckpt_dir: str, step: int, tree, *, keep: int = 3) -> str:
     arrays = {}
     meta = {"step": step, "keys": []}
     for k, v in _flatten(tree).items():
-        arr = _host(v)
+        arr = to_numpy(v)
         arrays[k] = arr
         meta["keys"].append({"key": k, "shape": list(arr.shape),
                              "dtype": str(arr.dtype)})
@@ -107,8 +128,7 @@ def _like(arr: np.ndarray, ref):
     """``arr`` as ``ref`` holds its leaf: a tensor on ``ref``'s device and
     dtype, a numpy array of its dtype, or a scalar of its type."""
     if isinstance(ref, torch.Tensor):
-        return torch.from_numpy(np.array(arr)).to(device=ref.device,
-                                                  dtype=ref.dtype)
+        return from_numpy(arr, ref.device, ref.dtype)
     if isinstance(ref, np.ndarray):
         return np.asarray(arr, dtype=ref.dtype)
     if isinstance(ref, np.generic):

@@ -55,13 +55,19 @@ class Supervisor:
             state_like=None, log: Optional[List[str]] = None):
         """Run ``step_fn(state, step) -> state`` with checkpoint/restart.
 
-        Returns the final state. ``state_like`` (a tree whose leaves are
-        placed where the restored state should live) restores onto
-        another device or dtype than the one that wrote the checkpoint;
-        by default the state is restored like ``init_state``.
+        Returns the final state. ``init_state`` is the first state, or a
+        function of no arguments that makes it: a step that updates its
+        state in place (``train_lib``'s) needs the function, since a
+        failure before the first save restarts from a fresh initial state,
+        and the one it was handed has been stepped. ``state_like`` (a tree
+        whose leaves are placed where the restored state should live)
+        restores onto another device or dtype than the one that wrote the
+        checkpoint; by default the state is restored like the initial
+        state.
         """
+        fresh = init_state if callable(init_state) else lambda: init_state
         restarts = 0
-        state = init_state
+        init_state = state = fresh()
         start = ckpt_lib.latest_step(self.ckpt_dir)
         if start is not None:
             state, start = ckpt_lib.restore(
@@ -90,7 +96,7 @@ class Supervisor:
                     raise
                 latest = ckpt_lib.latest_step(self.ckpt_dir)
                 if latest is None:
-                    state, step = init_state, 0
+                    state, step = fresh(), 0
                 else:
                     state, saved = ckpt_lib.restore(
                         self.ckpt_dir,

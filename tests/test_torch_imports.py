@@ -24,6 +24,9 @@ from repro_torch.core.mfbc import mfbc
 from repro_torch.graphs.generators import path_graph
 from repro_torch.configs import get_arch
 from repro_torch.launch import bc_run, serve
+from repro_torch.launch import train as launch_train
+from repro_torch.optim.adamw import AdamWConfig
+from repro_torch.train.train_lib import make_lm_train_step
 from repro_torch.models import transformer as T
 from repro_torch.serve.engine import ServeEngine
 
@@ -73,6 +76,12 @@ _MODULES = {
     "repro_torch.configs.base", "repro_torch.configs.lm_archs",
     "repro_torch.configs.registry", "repro_torch.serve.engine",
     "repro_torch.launch.serve",
+    # slice 7b: LM training
+    "repro_torch.optim", "repro_torch.optim.adamw",
+    "repro_torch.optim.grad_compress", "repro_torch.tree",
+    "repro_torch.train.train_lib", "repro_torch.launch.train",
+    "repro_torch.data", "repro_torch.data.pipeline",
+    "repro_torch.graphs.sampler",
 }
 
 _BANNED = re.compile(r"^\s*(?:import|from)\s+(?:jax|repro)\b", re.MULTILINE)
@@ -166,3 +175,9 @@ def test_entry_points_default_to_the_card(monkeypatch):
         ServeEngine(T.Transformer(cfg), n_slots=1, max_len=8)
     with pytest.raises(SystemExit, match="--device cpu"):
         serve.main(["--arch", "gemma2-27b", "--smoke"])
+    with pytest.raises(SystemExit, match="--device cpu"):
+        launch_train.main(["--arch", "gemma2-27b", "--smoke"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_lm_train_step(cfg, AdamWConfig())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        T.init_tree(cfg, torch.Generator().manual_seed(0))

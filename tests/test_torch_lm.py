@@ -10,7 +10,8 @@
   parameter counts, the LM half of ``tests/test_arch_smoke.py::
   test_full_configs_match_assignment``, the 15 prefill and decode smoke
   cells through ``LMArch.build(...).fn`` on the reference's concrete
-  arguments, and the unported names raising with their slice.
+  arguments, and the unported names raising with their slice (the train
+  cells are ``tests/test_torch_train_cells.py``'s).
 
 The whole models are held in ``tests/test_torch_lm_model.py``. This
 file also holds the helpers of the port's LM tests (configs and weights
@@ -374,6 +375,9 @@ def test_unported_names_raise_with_their_slice():
             get_arch(arch)
     with pytest.raises(KeyError, match="unknown arch"):
         get_arch("no-such-arch")
+    # the train cells are ported (slice 7b): the gemma2 smoke cell runs
+    # on its own concrete arguments
     spec = get_arch("gemma2-27b")
-    with pytest.raises(NotImplementedError, match="slice 7b"):
-        spec.build(spec.cells()["train_4k"], smoke=True)
+    b = spec.build(spec.cells()["train_4k"], smoke=True)
+    args = b.concrete_args(torch.Generator().manual_seed(0), "cpu")
+    b.check(b.fn(*args))
