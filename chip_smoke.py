@@ -233,6 +233,44 @@ order; any failed check raises and the script exits non-zero:
        run without them: the final checkpoints' parameters within rtol
        1e-6.
     Phase 12 runs none of the three kernels either.
+13. the GNN and recsys families (``repro_torch.models.{gnn,recsys,
+    gnn_dist}``, ``configs.base.GNNArch`` / ``RecsysArch``), f32 with
+    TF32 off, at their published widths:
+    a. gcn-cora, gin-tu, nequip and gat-cora on ``full_graph_sm``,
+       ``minibatch_lg`` and ``molecule`` at the cells' sizes, through
+       ``build(cell).fn`` with state and batch drawn on the card: ms a
+       step (median of 5 after one), model TFLOP/s beside 67, peak
+       memory; then one step in f64 on the card and the CPU from one
+       state: the loss within rtol 1e-4, every parameter within rtol
+       1e-4, atol 1e-4 · max(1, max|x|), every leaf's update at cosine
+       ≥ 0.999;
+    b. ``ogb_products`` full-batch (2,449,029 nodes, 61,859,140 edges)
+       for gcn-cora (step 0's gradient against central differences
+       along g/|g|, as 12a; one step under ``torch.profiler``), gin-tu
+       and gat-cora (listed with its peak if it does not fit): ms a
+       step, edges/s (E × layers / step), model TFLOP/s, peak memory.
+       nequip × ogb_products is listed, not run: its (E, 32, 3, 3)
+       tensors are 71.3 GB each and need the mesh;
+    c. xDeepFM at full width (a 39,000,064 × 10 table, CIN (200, 200,
+       200), MLP (400, 400)): the serve and retrieval steps on 64 rows /
+       4,096 candidates and one train step on 64 rows, card against CPU
+       in f64 (within 1e-4 of their scale; the train step as 13a); then
+       ``train_batch`` at the largest of 65,536 / 32,768 / 16,384 rows
+       that fits (ms a step, examples/s, one step under the profiler),
+       ``serve_p99`` (512 rows: p50 and p99 over 200 calls),
+       ``serve_bulk`` (262,144 rows in chunks of 32,768; examples/s) and
+       ``retrieval_cand`` (10^6 candidates, ms);
+    d. ``examples/torch_gnn_train.py``'s two loops (the port's
+       ``examples/gnn_train.py``) on the card and the CPU from the same
+       initial parameters: the losses fall as the example asserts, the
+       first 8 within rtol 1e-4;
+    e. ``models.gnn_dist``'s 2D GCN (gcn-cora's width, d_in 100, 47
+       classes) on phase 6d's scale-18 graph with its ids permuted, on
+       four gloo ranks sharing the card ((2, 2)) and on a one-rank NCCL
+       mesh: loss within rtol 1e-5 and gradients within rtol 2e-4, atol
+       1e-6 of the single-device GCN; seconds a step; bytes a rank by
+       kind, one forward's equal to |H|/R + |H|/C.
+    Phase 13 runs none of the three kernels either.
 
 Each main-path run (phases 3, 4, 5a, 5b on the dense kernels, 6c and 6d
 on the sparse relax, every run of 7a, 7c and 7d on its backend's
@@ -325,6 +363,9 @@ from repro_torch.optim import adamw  # noqa: E402
 from repro_torch import tree as tree_lib  # noqa: E402
 from repro_torch.train.train_lib import (make_lm_train_step,  # noqa: E402
                                          value_and_grad)
+from repro_torch.models import gnn as G  # noqa: E402
+from repro_torch.models import gnn_dist as GD  # noqa: E402
+from repro_torch.models import recsys as R  # noqa: E402
 
 INF = float("inf")
 DEV = torch.device("cuda")
@@ -1837,13 +1878,15 @@ def same_served(got: list, want: list, label: str) -> None:
                                        err_msg=f"{label} rid {a['rid']} {k}")
 
 
-def run_ranks(payload: dict, tmp: str) -> dict:
-    """Spawn phase 9b's ranks; their results by rank. Fails with the
-    first rank's traceback, or after ``RANK_TIMEOUT_S``; every rank is
-    joined or killed before it returns."""
+def run_ranks(payload: dict, tmp: str, target=None, label: str = "9b"
+              ) -> dict:
+    """Spawn ``MESH_RANKS`` ranks of ``target`` (phase 9b's ``mesh_rank``
+    by default); their results by rank. Fails with the first rank's
+    traceback, or after ``RANK_TIMEOUT_S``; every rank is joined or
+    killed before it returns."""
     ctx = multiprocessing.get_context("spawn")
     results = ctx.Queue()
-    procs = [ctx.Process(target=mesh_rank, args=(
+    procs = [ctx.Process(target=target or mesh_rank, args=(
         r, os.path.join(tmp, "store"), results, payload))
         for r in range(MESH_RANKS)]
     for p in procs:
@@ -1853,10 +1896,10 @@ def run_ranks(payload: dict, tmp: str) -> dict:
         while len(got) < MESH_RANKS:
             rank, out = results.get(timeout=RANK_TIMEOUT_S)
             if isinstance(out, str):
-                raise AssertionError(f"9b: rank {rank} failed:\n{out}")
+                raise AssertionError(f"{label}: rank {rank} failed:\n{out}")
             got[rank] = out
     except queue.Empty:
-        raise AssertionError(f"9b: the ranks gave no answer in "
+        raise AssertionError(f"{label}: the ranks gave no answer in "
                              f"{RANK_TIMEOUT_S}s ({len(got)} answered)")
     finally:
         for p in procs:
@@ -2188,6 +2231,7 @@ LM_SLOTS, LM_MAX_LEN = 4, 4352
 # prompt passes the local layers' 4096 window
 LM_REQUESTS = ((16, 16), (128, 8), (512, 32), (1000, 4), (4200, 8), (64, 24))
 MOE_ARCH, MOE_LAYERS = "moonshot-v1-16b-a3b", 2
+LM_ARCHS = [a for a, spec in ARCHS.items() if spec.family == "lm"]
 MOE_BATCH, MOE_PROMPT, MOE_STEPS = 2, 256, 8
 LM_TIE = 1e-4  # a differing token's logit within this share of max|logit|
 PROFILE_STEPS = 3  # 11a's decode steps under the profiler
@@ -2490,7 +2534,7 @@ def phase11c() -> None:
     card and on the CPU: the printed line, the shape, the same token ids
     (a row may differ from its first near tie on, judged on the CPU's
     logits)."""
-    for arch in ARCHS:
+    for arch in LM_ARCHS:
         argv = ["--arch", arch, "--smoke"]
         cfg = get_arch(arch).config(smoke=True)
         out = {}
@@ -2565,23 +2609,15 @@ def displaced(params, d, step: float) -> float:
     return dot
 
 
-def gradient_fd_check(cfg, batch) -> dict:
-    """Step 0's gradient ``g`` against the loss along ``d = g/|g|``:
+def gradient_fd_check(loss_of, draw, label: str) -> dict:
+    """Step 0's gradient ``g`` of ``loss_of`` at the parameters ``draw()``
+    gives, against the loss along ``d = g/|g|``:
     ``(L(θ+εd) − L(θ−εd)) / (2ε)`` against ``|g|``, with ε = move / |g|
     for each move of ``FD_MOVES``; held where the closer of the two is
     within ``FD_TOL``. The moves are made in f32 and read back exactly,
     so the quotient divides by the moves made (``displaced``); the
     nominal one is printed beside it. θ is redrawn from its seed for each
     side."""
-    toks, tgts = on_card(batch)
-
-    def loss_of(p):
-        return T.loss_fn((cfg, p), toks, tgts, chunks=TRAIN_CHUNKS)
-
-    def draw():
-        return T.init_tree(cfg, torch.Generator(device=DEV).manual_seed(0),
-                           DEV)
-
     params = draw()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2608,20 +2644,20 @@ def gradient_fd_check(cfg, batch) -> dict:
         fd = (out[1][0] - out[-1][0]) / (out[1][1] + out[-1][1])
         nominal = (out[1][0] - out[-1][0]) / (2 * eps)
         rels.append(abs(fd - g) / g)
-        log(f"12a: gradient check at step 0, loss move {move}: ε "
+        log(f"{label}: gradient check at step 0, loss move {move}: ε "
             f"{eps:.4e}, L(θ+εd) {out[1][0]:.7f}, L(θ−εd) {out[-1][0]:.7f}; "
             f"directional derivative {fd:.6e} over the moves made "
             f"({(out[1][1] + out[-1][1]) / (2 * eps):.6f} of 2ε), "
             f"{nominal:.6e} over 2ε; relative difference from |g| "
             f"{rels[-1]:.3e}")
     del params, d
-    log(f"12a: |g| {g:.6e}, loss {float(loss0):.7f}; the closer "
+    log(f"{label}: |g| {g:.6e}, loss {float(loss0):.7f}; the closer "
         f"directional derivative within {min(rels):.3e} of |g| (held at "
         f"{FD_TOL}); value_and_grad {t_vag:.3f}s, peak "
         f"{peak_vag / 2**30:.3f} GiB")
     if not min(rels) <= FD_TOL:
-        raise AssertionError(f"12a: the gradient disagrees with the loss: "
-                             f"relative differences {rels}")
+        raise AssertionError(f"{label}: the gradient disagrees with the "
+                             f"loss: relative differences {rels}")
     return {"loss": float(loss0), "grad_norm": g}
 
 
@@ -2655,7 +2691,12 @@ def phase12a() -> None:
     pipe = LMPipeline(LMDataConfig(vocab=cfg.vocab, batch=1, seq=TRAIN_SEQ,
                                    seed=0))
     torch.cuda.reset_peak_memory_stats()
-    fd = gradient_fd_check(cfg, pipe.batch(0))
+    toks, tgts = on_card(pipe.batch(0))
+    fd = gradient_fd_check(
+        lambda p: T.loss_fn((cfg, p), toks, tgts, chunks=TRAIN_CHUNKS),
+        lambda: T.init_tree(cfg, torch.Generator(device=DEV).manual_seed(0),
+                            DEV), "12a")
+    del toks, tgts
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     init_fn, step_fn = make_lm_train_step(cfg, opt, device=DEV,
@@ -2725,15 +2766,17 @@ def phase12a() -> None:
 def leaf_pairs(a, b):
     for (p, x), (q, y) in zip(tree_lib.leaves(a), tree_lib.leaves(b)):
         assert p == q, (p, q)
-        yield "/".join(p), x, y
+        yield "/".join(map(str, p)), x, y
 
 
-def card_vs_cpu(got, want, old, dtype, what: str) -> dict:
+def card_vs_cpu(got, want, old, dtype, what: str, label: str = "12b"
+                ) -> dict:
     """Each leaf of ``got`` (on the card) against ``want`` (on the CPU,
     moved to the card leaf by leaf): the largest difference, held in f64
     within rtol 1e-4, atol 1e-4 · max(1, max|x|) when ``old`` is None
     (the parameters), else over each leaf's scale (printed only); with
-    ``old``, also the smallest cosine between the two updates."""
+    ``old``, also the smallest cosine between the two updates (a leaf the
+    CPU's update leaves must stay on the card too)."""
     out = {"err": 0.0, "rel": 0.0, "cos": 1.0}
     for name, x, y in leaf_pairs(got, want):
         y = y.to(DEV)
@@ -2744,13 +2787,18 @@ def card_vs_cpu(got, want, old, dtype, what: str) -> dict:
         if what == "params" and dtype == torch.float64:
             atol = 1e-4 * max(1.0, scale)
             if not bool((diff <= atol + 1e-4 * y.abs()).all()):
-                raise AssertionError(f"12b f64 {name}: card vs CPU "
+                raise AssertionError(f"{label} f64 {name}: card vs CPU "
                                      f"{float(diff.max())} (atol {atol})")
         if old is not None:
             o = old[name].to(DEV, torch.float64)
             du, dw = x.double() - o, y.double() - o
-            out["cos"] = min(out["cos"], float(
-                (du * dw).sum() / (du.norm() * dw.norm())))
+            if float(dw.norm()):
+                out["cos"] = min(out["cos"], float(
+                    (du * dw).sum() / (du.norm() * dw.norm())))
+            elif float(du.norm()):  # a leaf the CPU left must stay
+                raise AssertionError(f"{label} {name}: moved on the card by "
+                                     f"{float(du.abs().max())}, not on "
+                                     f"the CPU")
         del y, diff
     return out
 
@@ -2837,7 +2885,7 @@ def phase12c() -> None:
     fallen by the last: 8 leave command-r's and qwen3's smoke losses
     within their batches' spread on the CPU): the first ``LAUNCH_HELD``
     losses within rtol 1e-4, the largest difference of all printed."""
-    for arch in ARCHS:
+    for arch in LM_ARCHS:
         argv = ["--arch", arch, "--smoke", "--steps", str(LAUNCH_STEPS)]
         cfg = get_arch(arch).config(smoke=True)
         out, secs = {}, {}
@@ -2915,6 +2963,585 @@ def phase12() -> None:
     ran = {name: w.launches for name, w in WRAPPERS.items() if w.launches}
     if ran:
         raise AssertionError(f"12: the LM training path launched BC "
+                             f"kernels: {ran}")
+
+
+# -- phase 13: the GNN and recsys families ------------------------------------
+
+GNN_ARCHS = ("gcn-cora", "gin-tu", "nequip", "gat-cora")
+GNN_SMALL = ("full_graph_sm", "minibatch_lg", "molecule")
+OGB_ARCHS = ("gcn-cora", "gin-tu", "gat-cora")
+GNN_TIMED = 5  # timed steps a cell, after one warm-up
+XDFM_BATCHES = (65536, 32768, 16384)  # train_batch's, then halved
+BULK_CHUNK = 32768  # serve_bulk's rows a call
+P99_CALLS = 200
+XDFM_ROWS, XDFM_CANDS = 64, 4096  # the slices held against the CPU
+GNN_MESH = ((2, 2), ("data", "model"))
+GNN_MESH_CLASSES, GNN_MESH_DIN = 47, 100
+GNN_MESH_REPEATS = 3
+
+
+def placed(tree, device, dtype=None):
+    """A copy of a tree of tensors on ``device``, floats cast to
+    ``dtype`` (ints, bools and plain ints kept)."""
+    def put(t):
+        if not isinstance(t, torch.Tensor):
+            return t
+        want = dtype if dtype is not None and t.is_floating_point() \
+            else t.dtype
+        return t.to(device=device, dtype=want, copy=True)
+
+    return tree_lib.tree_map(put, tree)
+
+
+def by_name(tree) -> dict:
+    return {"/".join(map(str, p)): x for p, x in tree_lib.leaves(tree)}
+
+
+def timed_steps(fn, n: int) -> tuple:
+    """``fn()`` ``1 + n`` times, each synced on the host clock; (seconds of
+    each, the last output)."""
+    secs, out = [], None
+    for _ in range(1 + n):
+        del out
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    return secs, out
+
+
+def step_card_vs_cpu(b, host_params, host_args, label: str) -> dict:
+    """One step of bundle ``b`` in f64 on the card and on the CPU from the
+    same state (the CPU's ``host_params``, f32, and ``host_args``): the
+    loss within rtol 1e-4; the grad norm, which AdamW sums in f32 as the
+    reference does, within rtol 1e-6; the gradient, read back from AdamW's
+    first moment (0.1 × the clipped gradient) over the clip's scale that
+    each side took, within 3e-7 of each leaf's largest magnitude on the
+    CPU, and exactly zero on the card where it is zero on the CPU; the
+    parameters by ``card_vs_cpu`` (held in f64, the smallest cosine of a
+    leaf's update at least 0.999). The moments are f32, as the
+    reference's: the two sides' f64 gradients agree to rounding, but each
+    is rounded to f32 twice (the cast, then 0.1 ×), so they may differ by
+    2^-22 of a value."""
+    clip = adamw.AdamWConfig().grad_clip  # the cells' clip
+    out = {}
+    for d in (DEV, "cpu"):
+        p = placed(host_params, d, torch.float64)
+        args = placed(host_args, d, torch.float64)
+        opt = adamw.init_state(p)
+        t0 = time.perf_counter()
+        _, _, m = b.fn(p, opt, *args)
+        secs = time.perf_counter() - t0
+        # clip_by_global_norm's scale, by the same ops on the same device
+        scale = torch.clamp(clip / torch.clamp(m["grad_norm"], min=1e-9),
+                            max=1.0).double()
+        out[d] = (p, opt["m"], scale, float(m["loss"]),
+                  float(m["grad_norm"]), secs)
+        del args
+    old = by_name(host_params)
+    par = card_vs_cpu(out[DEV][0], out["cpu"][0], old, torch.float64,
+                      "params", label)
+    grad_rel = 0.0
+    for name, x, y in leaf_pairs(out[DEV][1], out["cpu"][1]):
+        x = x.double() / out[DEV][2]
+        y = y.to(DEV, torch.float64) / out["cpu"][2].to(DEV)
+        top, err = float(y.abs().max()), float((x - y).abs().max())
+        if not top:
+            if err:
+                raise AssertionError(f"{label} {name}: gradient {err} on "
+                                     f"the card, 0 on the CPU")
+            continue
+        grad_rel = max(grad_rel, err / top)
+        if err > 3e-7 * top:
+            raise AssertionError(f"{label} f64 {name}: gradient card vs CPU "
+                                 f"{err} of {top}")
+        del x, y
+    np.testing.assert_allclose(out[DEV][3], out["cpu"][3], rtol=1e-4,
+                               err_msg=f"{label} f64 loss")
+    np.testing.assert_allclose(out[DEV][4], out["cpu"][4], rtol=1e-6,
+                               err_msg=f"{label} f64 grad norm")
+    if not par["cos"] >= 0.999:
+        raise AssertionError(f"{label}: an update's cosine {par['cos']}")
+    return {"loss": (out[DEV][3], out["cpu"][3]),
+            "norm": (out[DEV][4], out["cpu"][4]), "grad_rel": grad_rel,
+            "cpu_s": out["cpu"][5], **par}
+
+
+def phase13a() -> None:
+    """Each GNN at its published width on ``full_graph_sm``,
+    ``minibatch_lg`` and ``molecule`` at the cells' sizes: steps of
+    ``build(cell).fn`` on the card (f32), then one step in f64 on the
+    card and the CPU from one state."""
+    gen = torch.Generator(device=DEV)
+    for arch in GNN_ARCHS:
+        spec = get_arch(arch)
+        for shape in GNN_SMALL:
+            b = spec.build(spec.cells()[shape])
+            gen.manual_seed(0)
+            params, opt, batch = b.concrete_args(gen, DEV)
+            host = (placed(params, "cpu"), (placed(batch, "cpu"),))
+            torch.cuda.reset_peak_memory_stats()
+            secs, out = timed_steps(lambda: b.fn(params, opt, batch),
+                                    GNN_TIMED)
+            b.check(out)
+            peak = torch.cuda.max_memory_allocated()
+            med = float(np.median(secs[1:]))
+            del params, opt, out
+            held = step_card_vs_cpu(b, *host, f"13a {arch} {shape}")
+            meta = spec.meta(shape)
+            log(f"13a: {arch} x {shape} (nodes+1 {batch['x'].shape[0]:,}, "
+                f"edges {batch['src'].shape[0]:,}, d {meta['d']}): "
+                f"{1e3 * med:.3f} ms a step (median of {GNN_TIMED}; "
+                f"warm-up {1e3 * secs[0]:.3f}), model FLOPs "
+                f"{b.model_flops:.4e}: {b.model_flops / med / 1e12:.4f} "
+                f"TFLOP/s of 67; peak {peak / 2**30:.3f} GiB; f64 card vs "
+                f"CPU loss {held['loss'][0]:.12f} / {held['loss'][1]:.12f}, "
+                f"grad norm {held['norm'][0]:.9f} / {held['norm'][1]:.9f}, "
+                f"gradient {held['grad_rel']:.3e} of each leaf's scale, "
+                f"params max abs err {held['err']:.3e}, smallest update "
+                f"cosine {held['cos']:.6f} (CPU step {held['cpu_s']:.3f}s)")
+            del batch, host
+            torch.cuda.empty_cache()
+
+
+def phase13b() -> dict:
+    """``ogb_products`` full-batch (2,449,029 nodes, 61,859,140 edges, d
+    100) for GCN, GIN and GAT: GCN's gradient against central differences,
+    then ``GNN_TIMED`` steps each; a cell that does not fit is listed with
+    its peak. One GCN step under the profiler."""
+    gen = torch.Generator(device=DEV)
+    profile = None
+    for arch in OGB_ARCHS:
+        spec = get_arch(arch)
+        b = spec.build(spec.cells()["ogb_products"])
+        meta = spec.meta("ogb_products")
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            gen.manual_seed(0)
+            t0 = time.perf_counter()
+            batch = spec.torch_batch("ogb_products", gen, device=DEV)
+            torch.cuda.synchronize()
+            t_batch = time.perf_counter() - t0
+            cfg = spec.cell_config("ogb_products")
+            if arch == "gcn-cora":
+                gradient_fd_check(
+                    lambda p: G.node_ce_loss("gcn", cfg, p, batch),
+                    lambda: G.gcn_init(cfg, gen.manual_seed(0), DEV),
+                    "13b gcn-cora")
+            gen.manual_seed(0)
+            params = G.INIT[spec.kind](cfg, gen, DEV)
+            opt = adamw.init_state(params)
+            secs, out = timed_steps(lambda: b.fn(params, opt, batch),
+                                    GNN_TIMED)
+            b.check(out)
+            losses = float(out[2]["loss"])
+            if arch == "gcn-cora":
+                profile = profiled(lambda: b.fn(params, opt, batch), 1,
+                                   top=8, width=56)
+        except torch.cuda.OutOfMemoryError as e:
+            if arch != "gat-cora":
+                raise
+            oom = str(e).splitlines()[0][:160]
+        else:
+            oom = None
+        if oom is not None:  # outside the handler: its frames are freed
+            batch = params = opt = out = None
+            gc.collect()
+            torch.cuda.empty_cache()
+            log(f"13b: {arch} x ogb_products does not fit the card: out of "
+                f"memory at a peak of "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB "
+                f"allocated ({oom})")
+            continue
+        peak = torch.cuda.max_memory_allocated()
+        med = float(np.median(secs[1:]))
+        L = cfg.n_layers
+        E = batch["src"].shape[0]
+        log(f"13b: {arch} x ogb_products (nodes+1 {batch['x'].shape[0]:,}, "
+            f"edges {E:,}, d {meta['d']}, batch drawn on the card in "
+            f"{t_batch:.3f}s): {1e3 * med:.3f} ms a step (median of "
+            f"{GNN_TIMED}; warm-up {1e3 * secs[0]:.3f}, min "
+            f"{1e3 * min(secs[1:]):.3f}, max {1e3 * max(secs[1:]):.3f}), "
+            f"{E * L / med / 1e9:.4f} G edges/s (E x {L} layers / step), "
+            f"model FLOPs {b.model_flops:.4e}: "
+            f"{b.model_flops / med / 1e12:.4f} TFLOP/s of 67; peak "
+            f"{peak / 2**30:.3f} GiB; last loss {losses:.6f}")
+        del batch, params, opt, out
+        torch.cuda.empty_cache()
+    e = get_arch("nequip").meta("ogb_products")["e"]
+    log(f"13b: nequip x ogb_products is not run: it needs the mesh (its "
+        f"gathered rank-2 features and messages, (E, 32, 3, 3) f32, are "
+        f"{e * 32 * 9 * 4 / 1e9:.1f} GB each)")
+    log("13b: a gcn-cora ogb_products step under torch.profiler: wall "
+        f"{profile['wall']:.3f}s, device busy "
+        + (f"{profile['busy']:.4f} of it" if profile["busy"]
+           else "not measured (the profiler saw no device time)")
+        + "; by kernel, ms: "
+        + "; ".join(f"{name} {ms:.3f}" for name, ms in profile["top"]))
+    return profile
+
+
+def xdfm_ids(gen, cfg, rows: int) -> torch.Tensor:
+    return torch.randint(0, cfg.total_vocab, (rows, cfg.n_fields, 1),
+                         generator=gen, device=DEV)
+
+
+def phase13c() -> None:
+    """xDeepFM at its published width (39 fields, a 39,000,064-row table
+    of 10, CIN (200, 200, 200), MLP (400, 400)): ``train_batch`` at the
+    largest of ``XDFM_BATCHES`` that fits, ``serve_p99``, ``serve_bulk``
+    in chunks of ``BULK_CHUNK`` rows and ``retrieval_cand``, each held
+    against the CPU in f64 on a slice."""
+    spec = get_arch("xdeepfm")
+    cfg = spec.config()
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    t0 = time.perf_counter()
+    params = R.init_params(cfg, gen, DEV)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    nbytes = tree_bytes(params)
+    if nbytes != 4 * cfg.n_params():
+        raise AssertionError(f"13c: {nbytes} parameter bytes")
+    opt = adamw.init_state(params)
+    cells = spec.cells()
+    train = spec.build(cells["train_batch"])
+    serve_b = spec.build(cells["serve_p99"])
+    ret = spec.build(cells["retrieval_cand"])
+    # the card against the CPU in f64 on slices, from the drawn state
+    ids = xdfm_ids(gen, cfg, XDFM_ROWS)
+    lbl = torch.randint(0, 2, (XDFM_ROWS,), generator=gen,
+                        device=DEV).float()
+    q, cands = xdfm_ids(gen, cfg, 1), xdfm_ids(gen, cfg, XDFM_CANDS)
+    host = placed(params, "cpu")
+    f64 = {d: placed(host, d, torch.float64) for d in (DEV, "cpu")}
+    errs = {}
+    for name, fn, args in (("serve", serve_b.fn, (ids,)),
+                           ("retrieval", ret.fn, (q, cands))):
+        got = fn(f64[DEV], *args)
+        want = fn(f64["cpu"], *placed(args, "cpu"))
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
+                                   rtol=1e-4, atol=1e-4 * float(
+                                       want.abs().max()),
+                                   err_msg=f"13c {name} f64")
+        errs[name] = float((got.cpu() - want).abs().max())
+    del f64
+    held = step_card_vs_cpu(train, host, (ids, lbl), "13c train")
+    del host
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"13c: xdeepfm at full width: {cfg.n_params():,} parameters "
+        f"({nbytes / 2**30:.3f} GiB, drawn on the card in {t_init:.3f}s), "
+        f"train state {tree_bytes(opt) / 2**30 + nbytes / 2**30:.3f} GiB; "
+        f"f64 card vs CPU: serve on {XDFM_ROWS} rows max abs err "
+        f"{errs['serve']:.3e}, retrieval on {XDFM_CANDS} candidates "
+        f"{errs['retrieval']:.3e} (held within 1e-4 of their scale); one "
+        f"train step on {XDFM_ROWS} rows: loss {held['loss'][0]:.12f} / "
+        f"{held['loss'][1]:.12f}, grad norm {held['norm'][0]:.9f} / "
+        f"{held['norm'][1]:.9f}, gradient {held['grad_rel']:.3e} of each "
+        f"leaf's scale, params max abs err {held['err']:.3e}, "
+        f"smallest update cosine {held['cos']:.6f} (CPU step "
+        f"{held['cpu_s']:.3f}s)")
+    # train_batch at the largest batch that fits
+    for B in XDFM_BATCHES:
+        ids = xdfm_ids(gen, cfg, B)
+        lbl = torch.randint(0, 2, (B,), generator=gen, device=DEV).float()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            secs, out = timed_steps(lambda: train.fn(params, opt, ids, lbl),
+                                    GNN_TIMED)
+            break
+        except torch.cuda.OutOfMemoryError:
+            pass
+        # outside the handler, whose frames hold the step's activations
+        del ids, lbl
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"13c: train_batch at batch {B:,} does not fit: out of memory "
+            f"at a peak of {torch.cuda.max_memory_allocated() / 2**30:.3f} "
+            f"GiB")
+    else:
+        raise AssertionError("13c: no train batch fits")
+    train.check(out)
+    peak = torch.cuda.max_memory_allocated()
+    med = float(np.median(secs[1:]))
+    flops = train.model_flops * B / cells["train_batch"].batch
+    profile = profiled(lambda: train.fn(params, opt, ids, lbl), 1, top=8,
+                       width=56)
+    log(f"13c: train_batch at batch {B:,} (the cell's "
+        f"{cells['train_batch'].batch:,} cut): {1e3 * med:.3f} ms a step "
+        f"(median of {GNN_TIMED}; warm-up {1e3 * secs[0]:.3f}), "
+        f"{B / med:,.0f} examples/s, model FLOPs {flops:.4e}: "
+        f"{flops / med / 1e12:.4f} TFLOP/s of 67; peak {peak / 2**30:.3f} "
+        f"GiB; loss {float(out[2]['loss']):.6f}")
+    log("13c: a train step under torch.profiler: wall "
+        f"{profile['wall']:.3f}s, device busy "
+        + (f"{profile['busy']:.4f} of it" if profile["busy"]
+           else "not measured (the profiler saw no device time)")
+        + "; by kernel, ms: "
+        + "; ".join(f"{name} {ms:.3f}" for name, ms in profile["top"]))
+    del ids, lbl, out, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    # serve_p99: one call at a time
+    ids = xdfm_ids(gen, cfg, cells["serve_p99"].batch)
+    lat = []
+    for _ in range(1 + P99_CALLS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = serve_b.fn(params, ids)
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t0)
+    serve_b.check(logits)
+    p50, p99 = (1e3 * float(np.percentile(lat[1:], k)) for k in (50, 99))
+    # serve_bulk: the cell's rows in chunks; a row's logit is its own
+    rows = cells["serve_bulk"].batch
+    bulk = xdfm_ids(gen, cfg, rows)
+
+    def bulk_pass():
+        return torch.cat([serve_b.fn(params, bulk[i:i + BULK_CHUNK])
+                          for i in range(0, rows, BULK_CHUNK)])
+
+    torch.cuda.reset_peak_memory_stats()
+    secs, logits = timed_steps(bulk_pass, 3)
+    peak_bulk = torch.cuda.max_memory_allocated()
+    serve_b.check(logits)
+    alone = serve_b.fn(params, bulk[:512])
+    np.testing.assert_allclose(logits[:512].cpu().numpy(),
+                               alone.cpu().numpy(), rtol=1e-5, atol=1e-5)
+    bulk_s = float(np.median(secs[1:]))
+    # retrieval_cand: a million candidates
+    n = cells["retrieval_cand"].meta["n_candidates"]
+    q, cands = xdfm_ids(gen, cfg, 1), xdfm_ids(gen, cfg, n)
+    secs, scores = timed_steps(lambda: ret.fn(params, q, cands), 5)
+    ret.check(scores)
+    log(f"13c: serve_p99 (batch {ids.shape[0]}): p50 {p50:.3f} ms, p99 "
+        f"{p99:.3f} ms over {P99_CALLS} calls; serve_bulk ({rows:,} rows in "
+        f"chunks of {BULK_CHUNK:,}): {bulk_s:.3f}s a pass, "
+        f"{rows / bulk_s:,.0f} examples/s, peak {peak_bulk / 2**30:.3f} GiB "
+        f"(the first 512 rows equal a lone call's within 1e-5); "
+        f"retrieval_cand ({n:,} candidates): "
+        f"{1e3 * float(np.median(secs[1:])):.3f} ms (median of 5)")
+    del params, bulk, logits, cands, scores
+    torch.cuda.empty_cache()
+
+
+def phase13d() -> None:
+    """``examples/torch_gnn_train.py``'s loops (``examples/gnn_train.py``
+    through the port) on the card and on the CPU from the same initial
+    parameters: the losses fall as the example asserts, the card's first
+    8 within rtol 1e-4 of the CPU's."""
+    sys.path.insert(0, os.path.join(ROOT, "examples"))
+    import torch_gnn_train as TGT
+
+    cases = (("GCN (neighbor-sampled)", TGT.train_gcn_sampled,
+              lambda g: G.gcn_init(TGT.GCN_CFG, g, "cpu")),
+             ("NequIP (molecules)", TGT.train_nequip,
+              lambda g: G.nequip_init(TGT.NEQUIP_CFG, g, "cpu")))
+    for name, loop, init in cases:
+        p0 = init(torch.Generator().manual_seed(0))
+        out, secs = {}, {}
+        for d in (DEV, "cpu"):
+            t0 = time.perf_counter()
+            out[d] = np.asarray(loop(d, params=placed(p0, d)))
+            secs[d] = time.perf_counter() - t0
+        a = out[DEV]
+        if not (np.mean(a[-5:]) < (a[0] if "GCN" in name
+                                   else np.mean(a[:5]))):
+            raise AssertionError(f"13d {name}: losses {a}")
+        np.testing.assert_allclose(a[:LAUNCH_HELD], out["cpu"][:LAUNCH_HELD],
+                                   rtol=1e-4, err_msg=f"13d {name}")
+        rel = np.abs(a - out["cpu"]) / np.abs(out["cpu"])
+        log(f"13d: {name}: {len(a)} steps, card {secs[DEV]:.3f}s, CPU "
+            f"{secs['cpu']:.3f}s; loss {a[0]:.4f} -> mean of the last 5 "
+            f"{np.mean(a[-5:]):.4f}; card vs CPU relative: first "
+            f"{LAUNCH_HELD} {rel[:LAUNCH_HELD].max():.3e} (held at 1e-4), "
+            f"all {rel.max():.3e}")
+
+
+def gnn_mesh_problem(g, path: str) -> None:
+    """Phase 13e's problem, written to ``path`` (npz): ``g``'s arcs with
+    vertex ids permuted (seed 0; R-MAT's low ids are its hubs, and a 2D
+    bucket of them would overflow its 1.5x budget), ``md_gnn2d_check``'s
+    normalized coefficients, d_in features, labels and GCN weights at
+    gcn-cora's width."""
+    rng = np.random.default_rng(0)
+    perm = rng.permutation(g.n)
+    src, dst = perm[g.src].astype(np.int32), perm[g.dst].astype(np.int32)
+    deg = np.bincount(dst, minlength=g.n).astype(np.float32)
+    dinv = 1.0 / np.sqrt(np.maximum(deg, 1.0))
+    coef = (dinv[src] * dinv[dst]).astype(np.float32)
+    h = get_arch("gcn-cora").config().d_hidden
+    dims = (GNN_MESH_DIN, h, GNN_MESH_CLASSES)
+    np.savez(path, n=g.n, src=src, dst=dst, coef=coef,
+             x=rng.normal(size=(g.n, GNN_MESH_DIN)).astype(np.float32),
+             labels=rng.integers(0, GNN_MESH_CLASSES, g.n).astype(np.int32),
+             w0=(rng.normal(size=dims[:2]) / np.sqrt(dims[0])
+                 ).astype(np.float32),
+             w1=(rng.normal(size=dims[1:]) / np.sqrt(dims[1])
+                 ).astype(np.float32))
+
+
+def gnn_mesh_run(mesh, path: str) -> dict:
+    """The 2D GCN on ``mesh``: loss, synced gradients, seconds a step
+    (mean of ``GNN_MESH_REPEATS`` after one), bytes a step by kind, one
+    forward's bytes."""
+    z = np.load(path)
+    n = int(z["n"])
+    grid = GD.make_grid(mesh, n, z["src"].size)
+    src_b, dst_b, coef_b = GD.bucket_edges(grid, z["src"], z["dst"],
+                                           z["coef"])
+    lay = lambda a: GD.layout_features(grid, a)  # noqa: E731
+    lp = lay(z["labels"][:, None].astype(np.float32))[:, 0].astype(np.int32)
+    mask = lay(np.ones((n, 1), np.float32))[:, 0] > 0
+    args = GD.rank_inputs(mesh, grid, lay(z["x"]), src_b, dst_b, coef_b, lp,
+                          mask)
+    loss_fn = GD.build_gcn2d_loss(mesh, grid, n_layers=2)
+    params = {"w": [torch.from_numpy(z[k]).to(mesh.device)
+                    for k in ("w0", "w1")]}
+    mesh.reset_counts()
+    with torch.no_grad():
+        loss_fn(params, *args)
+    fwd = dict(mesh.comm_bytes)
+
+    def step():
+        loss, grads = value_and_grad(lambda p: loss_fn(p, *args), params)
+        return loss, GD.sync_grads(mesh, grid, grads["w"])
+
+    step()  # warm-up
+    mesh.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(GNN_MESH_REPEATS):
+        loss, grads = step()
+    torch.cuda.synchronize()
+    secs = (time.perf_counter() - t0) / GNN_MESH_REPEATS
+    return {"loss": float(loss), "grads": [x.cpu().numpy() for x in grads],
+            "seconds": secs, "fwd": fwd, "n_pad": grid.n_pad,
+            "R": grid.R, "C": grid.C, "e_max": grid.e_max,
+            "bytes": {k: v // GNN_MESH_REPEATS
+                      for k, v in mesh.comm_bytes.items() if v}}
+
+
+def gnn_rank(rank: int, store: str, results, payload: dict) -> None:
+    """One rank of phase 13e on the shared card over gloo."""
+    try:
+        dist.init_process_group("gloo", init_method=f"file://{store}",
+                                rank=rank, world_size=MESH_RANKS,
+                                timeout=datetime.timedelta(
+                                    seconds=RANK_TIMEOUT_S))
+        mesh = Mesh(*GNN_MESH, device="cuda")
+        out = gnn_mesh_run(mesh, payload["path"])
+        out["launches"] = _counts()
+        dist.destroy_process_group()
+        results.put((rank, out))
+    except BaseException:
+        results.put((rank, traceback.format_exc()))
+        raise
+
+
+def gnn_single(path: str) -> tuple:
+    """``md_gnn2d_check``'s single-device GCN (messages only, no self
+    loop) on the card: loss, gradients, ms a step (median of 3)."""
+    z = np.load(path)
+    n = int(z["n"])
+    put = lambda k: torch.from_numpy(z[k]).to(DEV)  # noqa: E731
+    x, coef, labels = put("x"), put("coef"), put("labels").long()
+    src, dst = put("src").long(), put("dst").long()
+
+    def loss_of(p):
+        h = x
+        for i, w in enumerate(p["w"]):
+            h = G._seg_sum(G._gather(h @ w, src) * coef[:, None], dst, n)
+            if i == 0:
+                h = torch.relu(h)
+        gold = torch.gather(h, 1, labels[:, None])[:, 0]
+        return torch.mean(torch.logsumexp(h, dim=-1) - gold)
+
+    params = {"w": [put("w0"), put("w1")]}
+    secs, (loss, grads) = timed_steps(
+        lambda: value_and_grad(loss_of, params), 3)
+    return float(loss), [g.cpu().numpy() for g in grads["w"]], \
+        float(np.median(secs[1:]))
+
+
+def mesh_held(out: dict, want: tuple, label: str) -> None:
+    loss, grads, _ = want
+    np.testing.assert_allclose(out["loss"], loss, rtol=1e-5,
+                               err_msg=f"{label} loss")
+    for a, b in zip(out["grads"], grads):
+        np.testing.assert_allclose(a, b, rtol=2e-4, atol=1e-6,
+                                   err_msg=f"{label} grads")
+
+
+def phase13e(g18) -> None:
+    """``models.gnn_dist``: the 2D GCN at gcn-cora's width on phase 6d's
+    scale-18 graph (ids permuted), on four gloo ranks sharing the card
+    ((2, 2)) and on a one-rank NCCL mesh in this process, against the
+    single-device GCN: loss rtol 1e-5, gradients rtol 2e-4, atol 1e-6."""
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        path = os.path.join(tmp, "gcn2d.npz")
+        gnn_mesh_problem(g18, path)
+        want = gnn_single(path)
+        t0 = time.perf_counter()
+        got = run_ranks({"path": path}, tmp, target=gnn_rank, label="13e")
+        wall = time.perf_counter() - t0
+        for rank, out in got.items():
+            mesh_held(out, want, f"13e rank {rank}")
+        r0 = got[0]
+        h = sum(r0["n_pad"] * d * 4 for d in (16, GNN_MESH_CLASSES))
+        log(f"13e: 2D GCN (d_in {GNN_MESH_DIN}, 16 hidden, "
+            f"{GNN_MESH_CLASSES} classes) on rmat s18 (n {g18.n:,}, "
+            f"{g18.m:,} arcs, ids permuted): single device "
+            f"{1e3 * want[2]:.3f} ms a step, loss {want[0]:.7f}; "
+            f"{MESH_RANKS} gloo ranks on one card, (2, 2), e_max "
+            f"{r0['e_max']:,}: {r0['seconds']:.3f}s a step (rank 0, mean "
+            f"of {GNN_MESH_REPEATS}; the world in {wall:.1f}s), every rank's "
+            f"loss and gradients held; bytes a rank a step by kind "
+            f"{r0['bytes']}; one forward {r0['fwd']} against |H|/R + |H|/C "
+            f"= {h // r0['R'] + h // r0['C']:,} (+ 8 B of loss sums)")
+        if r0["fwd"].get("gather", 0) != h // r0["C"] or \
+                r0["fwd"].get("tie_sum", 0) != h // r0["R"] + 8:
+            raise AssertionError(f"13e: forward bytes {r0['fwd']}")
+        dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                                world_size=1)
+        try:
+            out = gnn_mesh_run(Mesh((1, 1), ("data", "model"),
+                                    device="cuda"), path)
+        finally:
+            dist.destroy_process_group()
+        mesh_held(out, want, "13e nccl 1x1")
+        log(f"13e: one-rank NCCL mesh (1x1): {1e3 * out['seconds']:.3f} ms "
+            f"a step, loss and gradients held")
+    torch.cuda.empty_cache()
+
+
+def phase13(g18) -> None:
+    """Phase 13, f32 with TF32 off: it fails if a BC kernel launched."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("13: TF32 is on; the GNN path is held in f32")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    log(f"13: {smi}; torch.backends.cuda.matmul.allow_tf32 = False; "
+        f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated")
+    reset_counts()
+    for name, part in (("13a", phase13a), ("13b", phase13b),
+                       ("13c", phase13c), ("13d", phase13d),
+                       ("13e", lambda: phase13e(g18))):
+        t0 = time.perf_counter()
+        part()
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"phase{name} in {time.perf_counter() - t0:.1f}s")
+    ran = {name: w.launches for name, w in WRAPPERS.items() if w.launches}
+    if ran:
+        raise AssertionError(f"13: the GNN and recsys paths launched BC "
                              f"kernels: {ran}")
 
 
@@ -3193,6 +3820,12 @@ def main() -> None:
     t12 = time.perf_counter()
     phase12()
     log(f"phase 12 in {time.perf_counter() - t12:.1f}s; the script in "
+        f"{time.perf_counter() - t_start:.1f}s")
+
+    # 13. the GNN and recsys families
+    t13 = time.perf_counter()
+    phase13(g18)
+    log(f"phase 13 in {time.perf_counter() - t13:.1f}s; the script in "
         f"{time.perf_counter() - t_start:.1f}s")
 
     rows = [{"name": name, "route": "cuda", "source": k["source"],

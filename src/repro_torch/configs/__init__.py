@@ -1,4 +1,5 @@
-"""Architectures × input-shape cells: the LM half of ``repro.configs``."""
+"""Architectures × input-shape cells: the LM, GNN and recsys families of
+``repro.configs``."""
 from repro_torch.configs.base import ArchSpec, Cell, StepBundle
 from repro_torch.configs.registry import ARCHS, all_cells, get_arch
 

@@ -1,6 +1,7 @@
-"""Config system: architectures × input-shape cells (the LM half).
+"""Config system: architectures × input-shape cells.
 
-A port of the LM half of ``repro/configs/base.py``. Each architecture
+A port of the LM, GNN and recsys families of ``repro/configs/base.py``.
+Each architecture
 provides an ``ArchSpec`` with:
 
 * ``config(smoke=False)`` — the exact published configuration (or a tiny
@@ -12,17 +13,31 @@ provides an ``ArchSpec`` with:
 
 The reference's bundles also carry abstract, sharded arguments for its
 dry-run, which has no counterpart without XLA (slice 7d); its mesh
-branch (bf16 weights, int8 moments, chunked CE) waits for it too, so a
-train cell takes the reference's one-device policy: f32 weights and
-moments, plain CE. The GNN, recsys and BC families are slices 7c and 7d.
+branch (bf16 weights, int8 moments, chunked CE; the GNN batch padded to
+512 nodes and edges) waits for it too, so a train cell takes the
+reference's one-device policy: f32 weights and moments, plain CE. The BC
+family is slice 7d.
+
+The reference's concrete arguments draw the weights from a key and the
+GNN and recsys inputs from ``np.random.default_rng`` (the key unused).
+Here ``concrete_args(generator, device)`` draws both from the
+generator's stream on its device (a full ``ogb_products`` batch is
+245 M normals), and ``GNNArch.numpy_batch`` / ``RecsysArch.numpy_args``
+build the reference's numpy inputs exactly, so that the tests feed both
+packages the same ones (``batch_to_torch`` places them).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Callable, Dict, Optional
 
+import numpy as np
 import torch
 
+from repro_torch import resolve_device
+from repro_torch.graphs.sampler import SamplerSpec
+from repro_torch.models import gnn as G
+from repro_torch.models import recsys as R
 from repro_torch.models import transformer as T
 from repro_torch.optim import adamw
 from repro_torch.train.train_lib import value_and_grad
@@ -86,6 +101,12 @@ def _check_logits(out) -> None:
         raise AssertionError("non-finite logits")
 
 
+def _check_loss(out) -> None:
+    _, _, m = out
+    if not bool(torch.isfinite(m["loss"])):
+        raise AssertionError(f"non-finite loss: {m}")
+
+
 class LMArch(ArchSpec):
     family = "lm"
 
@@ -135,13 +156,8 @@ class LMArch(ArchSpec):
                 return (p, adamw.init_state(p, opt_cfg.moment_dtype), toks,
                         toks)
 
-            def check(out):
-                _, _, m = out
-                if not bool(torch.isfinite(m["loss"])):
-                    raise AssertionError(f"non-finite loss: {m}")
-
             return StepBundle(step, trips, 6.0 * n_active * B * S,
-                              concrete_args=concrete, check=check)
+                              concrete_args=concrete, check=_check_loss)
 
         if c.kind == "prefill":
             def step(model, toks, cache):
@@ -170,3 +186,352 @@ class LMArch(ArchSpec):
         return StepBundle(step, trips,
                           2.0 * n_active * B + cfg.n_layers * attn_flops,
                           concrete_args=concrete, check=_check_logits)
+
+
+# ---------------------------------------------------------------------------
+# GNN family.
+# ---------------------------------------------------------------------------
+
+GNN_CELLS = {
+    "full_graph_sm": Cell("full_graph_sm", "train", batch=1,
+                          meta=dict(n=2708, e=10556, d=1433, classes=7)),
+    "minibatch_lg": Cell("minibatch_lg", "train", batch=1024,
+                         meta=dict(n=232965, e=114615892, d=602, classes=41,
+                                   fanout=(15, 10))),
+    "ogb_products": Cell("ogb_products", "train", batch=1,
+                         meta=dict(n=2449029, e=61859140, d=100, classes=47)),
+    "molecule": Cell("molecule", "train", batch=128,
+                     meta=dict(n=30, e=64, d=16, classes=2)),
+}
+
+GNN_SMOKE_META = {
+    "full_graph_sm": dict(n=60, e=240, d=32, classes=7),
+    "minibatch_lg": dict(n=200, e=800, d=16, classes=5, fanout=(3, 2),
+                         batch=8),
+    "ogb_products": dict(n=120, e=480, d=12, classes=4),
+    "molecule": dict(n=6, e=12, d=8, classes=2, batch=4),
+}
+
+
+def batch_to_torch(batch: Dict[str, Any], device="cuda") -> Dict[str, Any]:
+    """A numpy batch (``GNNArch.numpy_batch``) as tensors on ``device``:
+    ids as int64, what ``gather`` and ``scatter_reduce_`` take; ints
+    (``n_graphs``) stay ints."""
+    dev = resolve_device(device)
+    if "x" in batch:
+        G.check_indices(batch, batch["x"].shape[0])
+    out = {}
+    for k, v in batch.items():
+        if isinstance(v, np.ndarray):
+            t = torch.from_numpy(np.array(v))
+            out[k] = (t.long() if v.dtype.kind in "iu" else t).to(dev)
+        else:
+            out[k] = v
+    return out
+
+
+class GNNArch(ArchSpec):
+    family = "gnn"
+
+    def __init__(self, arch_id: str, kind: str, full_hp: Dict[str, Any],
+                 smoke_hp: Dict[str, Any]):
+        self.arch_id = arch_id
+        self.kind = kind  # gcn | gin | gat | nequip
+        self.full_hp = full_hp
+        self.smoke_hp = smoke_hp
+
+    def config(self, smoke: bool = False, **dims):
+        hp = dict(self.smoke_hp if smoke else self.full_hp)
+        hp.update(dims)
+        cls = {"gcn": G.GCNConfig, "gin": G.GINConfig, "gat": G.GATConfig,
+               "nequip": G.NequIPConfig}[self.kind]
+        return cls(name=self.arch_id, **hp)
+
+    def cells(self) -> Dict[str, Cell]:
+        return GNN_CELLS
+
+    def meta(self, shape_id: str, smoke: bool = False) -> Dict[str, Any]:
+        return dict(GNN_SMOKE_META[shape_id] if smoke
+                    else GNN_CELLS[shape_id].meta)
+
+    def _layout(self, shape_id: str, meta):
+        """The padded graph batch of a cell, unsharded: ``(fields, n1, E,
+        n_graphs)``, ``fields`` mapping each array to ``(shape, what)`` in
+        the reference's order (its draws from one stream follow it)."""
+        if shape_id == "minibatch_lg":
+            spec = SamplerSpec(meta.get("batch", 1024), tuple(meta["fanout"]))
+            n1, E = spec.node_budget + 1, spec.edge_budget
+        elif shape_id == "molecule":
+            bsz = meta.get("batch", 128)
+            n1, E = bsz * meta["n"] + 1, bsz * meta["e"]
+        else:
+            n1, E = meta["n"] + 1, meta["e"]
+        f = {"x": ((n1, meta["d"]), "normal"), "src": ((E,), "node"),
+             "dst": ((E,), "node"), "labels": ((n1,), "label")}
+        if self.kind == "gcn":
+            f["deg"] = ((n1,), "normal")  # drawn, then replaced by degrees
+        if self.kind == "gat":
+            f["edge_pad"] = ((E,), "pad")
+        if self.kind == "nequip":
+            f["pos"] = ((n1, 3), "normal")
+        n_graphs = None
+        if shape_id == "molecule":
+            n_graphs = meta.get("batch", 128) + 1
+            f["graph_ids"] = ((n1,), "graph_ids")
+            f["labels"] = ((n_graphs,), "label")
+        return f, n1, E, n_graphs
+
+    @staticmethod
+    def _graph_ids(n1: int, meta) -> np.ndarray:
+        """Node → graph of a molecule batch; the dummy node (and any
+        remainder) in the extra graph ``batch``."""
+        per = (n1 - 1) // meta.get("batch", 1)
+        return np.minimum(np.arange(n1) // max(per, 1), meta.get("batch", 1))
+
+    def numpy_batch(self, shape_id: str, smoke: bool = False
+                    ) -> Dict[str, np.ndarray]:
+        """The reference's concrete batch of the cell, exactly: its
+        ``np.random.default_rng(0)`` draws in its order and dtypes."""
+        meta = self.meta(shape_id, smoke)
+        fields, n1, _, _ = self._layout(shape_id, meta)
+        rng = np.random.default_rng(0)
+        b = {}
+        for k, (shape, what) in fields.items():
+            if what == "label":
+                b[k] = rng.integers(0, meta["classes"], shape).astype(np.int32)
+            elif what == "node":
+                b[k] = rng.integers(0, n1 - 1, shape).astype(np.int32)
+            elif what == "graph_ids":
+                b[k] = self._graph_ids(n1, meta).astype(np.int32)
+            elif what == "pad":
+                b[k] = np.zeros(shape, bool)
+            else:
+                b[k] = rng.normal(size=shape).astype(np.float32)
+        if self.kind == "gcn":
+            b["deg"] = np.bincount(b["dst"], minlength=n1).astype(np.float32)
+        return b
+
+    def torch_batch(self, shape_id: str, generator: torch.Generator,
+                    smoke: bool = False, device="cuda") -> Dict[str, Any]:
+        """A batch of the cell's layout drawn from ``generator``'s stream
+        on its device (normals, uniform node ids and labels), int64 ids,
+        then placed on ``device``."""
+        dev = resolve_device(device)
+        meta = self.meta(shape_id, smoke)
+        fields, n1, _, _ = self._layout(shape_id, meta)
+        g, gd = generator, generator.device
+        b = {}
+        for k, (shape, what) in fields.items():
+            if what in ("label", "node"):
+                hi = meta["classes"] if what == "label" else n1 - 1
+                b[k] = torch.randint(0, hi, shape, generator=g, device=gd)
+            elif what == "graph_ids":
+                b[k] = torch.from_numpy(self._graph_ids(n1, meta)).to(gd)
+            elif what == "pad":
+                b[k] = torch.zeros(shape, dtype=torch.bool, device=gd)
+            elif k != "deg":
+                b[k] = torch.randn(shape, generator=g, device=gd)
+        if self.kind == "gcn":
+            b["deg"] = torch.bincount(b["dst"], minlength=n1).float()
+        return {k: v.to(dev) for k, v in b.items()}
+
+    def _flops(self, meta, n1, E) -> float:
+        d = meta["d"]
+        if self.kind == "gcn":
+            h = self.full_hp.get("d_hidden", 16)
+            L = self.full_hp.get("n_layers", 2)
+            fwd = 2.0 * (n1 * d * h + E * h) * L
+        elif self.kind == "gin":
+            h = self.full_hp.get("d_hidden", 64)
+            L = self.full_hp.get("n_layers", 5)
+            fwd = 2.0 * L * (E * h + 2 * n1 * h * h) + 2.0 * n1 * d * h
+        elif self.kind == "gat":
+            h = self.full_hp.get("d_hidden", 8) * self.full_hp.get("n_heads",
+                                                                  8)
+            L = self.full_hp.get("n_layers", 2)
+            fwd = 2.0 * L * (n1 * d * h + 3 * E * h)
+        else:  # nequip
+            C = self.full_hp.get("channels", 32)
+            L = self.full_hp.get("n_layers", 5)
+            fwd = 2.0 * L * (E * C * (9 + 13 * 6) + 3 * n1 * C * C * 13)
+        return 3.0 * fwd  # train ~ 3x forward
+
+    def cell_config(self, shape_id: str, smoke: bool = False):
+        """The model config of a cell: its input width and classes (a
+        NequIP node head off the molecule cell, an energy on it)."""
+        meta = self.meta(shape_id, smoke)
+        is_mol = shape_id == "molecule"
+        return self.config(
+            smoke, d_in=meta["d"],
+            **({"n_out": meta["classes"], "readout": "node"}
+               if self.kind == "nequip" and not is_mol else
+               {"n_out": 1} if self.kind == "nequip" else
+               {"n_classes": meta["classes"]}))
+
+    def build(self, cell: Cell, smoke: bool = False) -> StepBundle:
+        meta = self.meta(cell.shape_id, smoke)
+        is_mol = cell.shape_id == "molecule"
+        cfg = self.cell_config(cell.shape_id, smoke)
+        opt_cfg = adamw.AdamWConfig(weight_decay=0.0)
+        _, n1, E, static_ng = self._layout(cell.shape_id, meta)
+
+        def loss(params, batch):
+            if static_ng is not None:
+                batch = dict(batch, n_graphs=static_ng)
+            if self.kind == "nequip" and is_mol:
+                e = G.nequip_forward(cfg, params, batch)[:, 0]
+                lbl = batch["labels"].to(e.dtype)
+                return torch.mean(torch.square(e - lbl))
+            logits = G.FORWARD[self.kind](cfg, params, batch)
+            if is_mol and logits.shape[0] != batch["labels"].shape[0]:
+                # graph classification: pool node logits (GIN pools itself)
+                logits = G._seg_sum(logits, batch["graph_ids"],
+                                    batch["n_graphs"])
+            logz = torch.logsumexp(logits, dim=-1)
+            gold = torch.gather(logits, 1, batch["labels"].long()[:, None])
+            return torch.mean(logz - gold[:, 0])
+
+        def step(params, opt_state, batch):
+            """One AdamW step, ``params`` and ``opt_state`` updated in
+            place (the reference donates both)."""
+            lv, grads = value_and_grad(loss, params, batch)
+            params, opt_state, metrics = adamw.update(opt_cfg, grads,
+                                                      opt_state, params)
+            return params, opt_state, {"loss": lv, **metrics}
+
+        def concrete(generator, device="cuda"):
+            p = G.INIT[self.kind](cfg, generator, device)
+            return (p, adamw.init_state(p),
+                    self.torch_batch(cell.shape_id, generator, smoke, device))
+
+        return StepBundle(step, {}, self._flops(meta, n1, E),
+                          concrete_args=concrete, check=_check_loss)
+
+
+# ---------------------------------------------------------------------------
+# RecSys family (xDeepFM).
+# ---------------------------------------------------------------------------
+
+RECSYS_CELLS = {
+    "train_batch": Cell("train_batch", "train", batch=65536),
+    "serve_p99": Cell("serve_p99", "serve", batch=512),
+    "serve_bulk": Cell("serve_bulk", "serve", batch=262144),
+    "retrieval_cand": Cell("retrieval_cand", "retrieval", batch=1,
+                           meta=dict(n_candidates=1_000_000)),
+}
+
+RECSYS_SMOKE_CELLS = {
+    "train_batch": Cell("train_batch", "train", batch=32),
+    "serve_p99": Cell("serve_p99", "serve", batch=8),
+    "serve_bulk": Cell("serve_bulk", "serve", batch=64),
+    "retrieval_cand": Cell("retrieval_cand", "retrieval", batch=1,
+                           meta=dict(n_candidates=512)),
+}
+
+
+def _check_finite(out) -> None:
+    if not bool(torch.isfinite(out).all()):
+        raise AssertionError("non-finite outputs")
+
+
+class RecsysArch(ArchSpec):
+    family = "recsys"
+    arch_id = "xdeepfm"
+
+    def config(self, smoke: bool = False) -> R.XDeepFMConfig:
+        if smoke:
+            return R.XDeepFMConfig("xdeepfm-smoke", n_fields=6,
+                                   vocab_per_field=50, embed_dim=8,
+                                   cin_layers=(8, 8), mlp_layers=(16, 16))
+        return R.XDeepFMConfig("xdeepfm", n_fields=39,
+                               vocab_per_field=1_000_000, embed_dim=10,
+                               cin_layers=(200, 200, 200),
+                               mlp_layers=(400, 400))
+
+    def cells(self) -> Dict[str, Cell]:
+        return RECSYS_CELLS
+
+    def _shapes(self, cfg: R.XDeepFMConfig, shape_id: str, smoke: bool):
+        """The (shape, bound) of each id / label input of a cell, in the
+        reference's order of draws, and its seed."""
+        c = (RECSYS_SMOKE_CELLS if smoke else RECSYS_CELLS)[shape_id]
+        V, F = cfg.total_vocab, cfg.n_fields
+        if c.kind == "train":
+            return [((c.batch, F, 1), V), ((c.batch,), 2)], 0
+        if c.kind == "serve":
+            return [((c.batch, F, 1), V)], 1
+        return [((1, F, 1), V), ((c.meta["n_candidates"], F, 1), V)], 2
+
+    def numpy_args(self, shape_id: str, smoke: bool = False):
+        """The reference's concrete inputs of the cell (all but the
+        parameters and the optimizer state), exactly: ids int32, train
+        labels float32."""
+        cfg = self.config(smoke)
+        shapes, seed = self._shapes(cfg, shape_id, smoke)
+        rng = np.random.default_rng(seed)
+        out = [rng.integers(0, hi, shape) for shape, hi in shapes]
+        return [a.astype(np.float32 if a.ndim == 1 else np.int32)
+                for a in out]
+
+    def build(self, cell: Cell, smoke: bool = False) -> StepBundle:
+        cfg = self.config(smoke)
+        c = (RECSYS_SMOKE_CELLS if smoke else RECSYS_CELLS)[cell.shape_id]
+        B = c.batch
+        # fwd flops: CIN dominates: 2 sum_k (B H_k m D + B H_k m D H_{k+1})
+        m, D = cfg.n_fields, cfg.embed_dim
+        prev = m
+        fl = 0.0
+        for h in cfg.cin_layers:
+            fl += 2.0 * B * prev * m * D * (1 + h)
+            prev = h
+        d_mlp = m * D
+        for h in cfg.mlp_layers:
+            fl += 2.0 * B * d_mlp * h
+            d_mlp = h
+        shapes, _ = self._shapes(cfg, cell.shape_id, smoke)
+
+        def concrete(generator, device="cuda"):
+            """Parameters (and the train cell's optimizer state) and the
+            cell's inputs, drawn from ``generator`` on its device: ids
+            int64, labels float32."""
+            p = R.init_params(cfg, generator, device)
+            dev = resolve_device(device)
+            ins = [torch.randint(0, hi, shape, generator=generator,
+                                 device=generator.device) for shape, hi in
+                   shapes]
+            ins = [(a.float() if a.ndim == 1 else a).to(dev) for a in ins]
+            return ((p, adamw.init_state(p)) if c.kind == "train"
+                    else (p,)) + tuple(ins)
+
+        if c.kind == "train":
+            opt_cfg = adamw.AdamWConfig(weight_decay=0.0)
+
+            def step(params, opt_state, ids, labels):
+                """One AdamW step, in place (the reference donates
+                ``params`` and ``opt_state``)."""
+                lv, grads = value_and_grad(
+                    lambda p: R.bce_loss(cfg, p, ids, labels), params)
+                params, opt_state, metrics = adamw.update(
+                    opt_cfg, grads, opt_state, params)
+                return params, opt_state, {"loss": lv, **metrics}
+
+            return StepBundle(step, {}, 3.0 * fl, concrete_args=concrete,
+                              check=_check_loss)
+
+        if c.kind == "serve":
+            def step(params, ids):
+                with torch.no_grad():
+                    return R.forward(cfg, params, ids)
+
+            return StepBundle(step, {}, fl, concrete_args=concrete,
+                              check=_check_finite)
+
+        N = c.meta["n_candidates"]
+
+        def step(params, qids, cids):
+            with torch.no_grad():
+                return R.retrieval_score(cfg, params, qids, cids)
+
+        fl_ret = 2.0 * N * (cfg.n_fields * cfg.embed_dim + cfg.embed_dim)
+        return StepBundle(step, {}, fl_ret, concrete_args=concrete,
+                          check=_check_finite)

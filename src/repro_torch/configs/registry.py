@@ -1,13 +1,15 @@
 """Architecture registry: ``--arch <id>`` resolution.
 
-The port's registry holds the five LM architectures. The reference's
-other ids name the slice of ROADMAP.md that ports them.
+The port's registry holds the five LM architectures, the four GNNs and
+xDeepFM. The reference's BC id names the slice of ROADMAP.md that ports
+it.
 """
 from __future__ import annotations
 
 from typing import Dict
 
-from repro_torch.configs.base import ArchSpec
+from repro_torch.configs.base import ArchSpec, RecsysArch
+from repro_torch.configs.gnn_archs import GAT_CORA, GCN_CORA, GIN_TU, NEQUIP
 from repro_torch.configs.lm_archs import (COMMAND_R_PLUS, GEMMA2_27B,
                                           GRANITE_34B, MOONSHOT_16B,
                                           QWEN3_MOE)
@@ -15,11 +17,12 @@ from repro_torch.configs.lm_archs import (COMMAND_R_PLUS, GEMMA2_27B,
 ARCHS: Dict[str, ArchSpec] = {
     a.arch_id: a for a in [
         GEMMA2_27B, COMMAND_R_PLUS, GRANITE_34B, MOONSHOT_16B, QWEN3_MOE,
+        GCN_CORA, GIN_TU, NEQUIP, GAT_CORA,
+        RecsysArch(),
     ]
 }
 # the reference's architectures that later slices port
-UNPORTED = {"gcn-cora": "7c", "gin-tu": "7c", "nequip": "7c",
-            "gat-cora": "7c", "xdeepfm": "7c", "mfbc_paper": "7d"}
+UNPORTED = {"mfbc_paper": "7d"}
 
 
 def get_arch(arch_id: str) -> ArchSpec:

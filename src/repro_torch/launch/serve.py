@@ -82,7 +82,11 @@ def main(argv=None):
     except RuntimeError as e:
         raise SystemExit(f"[serve] {e}")
 
-    cfg = get_arch(args.arch).config(smoke=args.smoke)
+    spec = get_arch(args.arch)
+    if spec.family != "lm":
+        raise SystemExit(f"[serve] {args.arch} is a {spec.family} "
+                         f"architecture; launch.serve drives LM archs")
+    cfg = spec.config(smoke=args.smoke)
     model, prompt = model_and_prompts(cfg, args.batch, args.prompt_len, dev)
     sampler = torch.Generator(device=dev).manual_seed(0)
 

@@ -1,5 +1,6 @@
-"""LM transformers (dense + MoE) of the architecture zoo. The GNNs and
-xDeepFM (``gnn``, ``recsys``) are slice 7c of ROADMAP.md."""
-from repro_torch.models import layers, transformer
+"""The architecture zoo: LM transformers (dense + MoE), the GNNs
+(``gnn``; the 2D edge-partitioned GCN in ``gnn_dist``) and xDeepFM
+(``recsys``)."""
+from repro_torch.models import gnn, layers, recsys, transformer
 
-__all__ = ["layers", "transformer"]
+__all__ = ["gnn", "layers", "recsys", "transformer"]

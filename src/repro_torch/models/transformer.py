@@ -311,7 +311,8 @@ def _is_norm_scale(cfg: TransformerConfig, shape) -> bool:
 def _draw(cfg: TransformerConfig, generator: torch.Generator):
     """(path, value) of each leaf of the stacked tree, in sorted key
     order, on ``generator``'s device."""
-    for path, shape in tree_lib.leaves(param_shapes(cfg)):
+    for path, shape in tree_lib.leaves(param_shapes(cfg),
+                                       tree_lib.is_shape):
         if _is_norm_scale(cfg, shape):
             value = torch.zeros(shape, dtype=cfg.dtype,
                                 device=generator.device)
@@ -353,7 +354,8 @@ def params_from_reference(cfg: TransformerConfig, tree: Params,
     ``cfg.dtype``, layers stacked on dim 0), bit for bit."""
     model = Transformer(cfg, device)
     want = torch.empty((), dtype=cfg.dtype).numpy().dtype
-    for path, shape in tree_lib.leaves(param_shapes(cfg)):
+    for path, shape in tree_lib.leaves(param_shapes(cfg),
+                                       tree_lib.is_shape):
         arr = tree
         for k in path:
             arr = arr[k]
@@ -376,7 +378,8 @@ def params_to_numpy(model: Transformer) -> Params:
         return np.stack(parts) if path[0] == "layers" else parts[0]
 
     return tree_lib.unflatten((path, leaf(path)) for path, _ in
-                              tree_lib.leaves(param_shapes(model.cfg)))
+                              tree_lib.leaves(param_shapes(model.cfg),
+                                              tree_lib.is_shape))
 
 
 # ---------------------------------------------------------------------------

@@ -119,13 +119,17 @@ def clip_by_global_norm(grads, max_norm: float):
     return grads, norm
 
 
-def _pop(tree: dict, path) -> Any:
+def _pop(tree, path) -> Any:
+    """The leaf at ``path``, dropped from ``tree`` (a list keeps its
+    length: the slot is set to None)."""
     for k in path[:-1]:
         tree = tree[k]
-    return tree.pop(path[-1])
+    leaf = tree[path[-1]]
+    tree[path[-1]] = None
+    return leaf
 
 
-def _at(tree: dict, path) -> Any:
+def _at(tree, path) -> Any:
     for k in path:
         tree = tree[k]
     return tree

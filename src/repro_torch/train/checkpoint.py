@@ -12,6 +12,9 @@ A port of ``repro/train/checkpoint.py``:
   dtype (a tensor on its device, a numpy array or scalar on the host).
 * ``latest_step(dir)`` / ``all_steps(dir)`` — the restart loop's entry
   point.
+* ``params_from_reference(tree, device)`` / ``params_to_numpy(tree)`` —
+  a tree of the reference's numpy arrays as tensors and back, bit for bit
+  (the GNN and xDeepFM parameter trees).
 
 A tree is nested dicts (walked in sorted key order, as
 ``jax.tree_util`` walks them), lists and tuples whose leaves are tensors,
@@ -31,6 +34,9 @@ from typing import Any, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch import resolve_device
+from repro_torch import tree as tree_lib
 
 _SEP = "/"
 
@@ -76,6 +82,18 @@ def from_numpy(arr: np.ndarray, device, dtype: Optional[torch.dtype] = None
     else:
         t = torch.from_numpy(np.array(arr))
     return t.to(device=device, dtype=dtype or t.dtype)
+
+
+def params_from_reference(tree, device="cuda"):
+    """A tree of the reference's numpy arrays (dicts and lists) as tensors
+    on ``device``, bit for bit."""
+    dev = resolve_device(device)
+    return tree_lib.tree_map(lambda a: from_numpy(a, dev), tree)
+
+
+def params_to_numpy(tree):
+    """The inverse of ``params_from_reference``."""
+    return tree_lib.tree_map(to_numpy, tree)
 
 
 def save(ckpt_dir: str, step: int, tree, *, keep: int = 3) -> str:

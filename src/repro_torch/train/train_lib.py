@@ -40,13 +40,18 @@ from repro_torch.train.checkpoint import from_numpy, to_numpy
 def value_and_grad(loss_fn: Callable, params, *args
                    ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """``loss_fn(params, *args)`` and its gradient, a tree of ``params``'
-    structure. ``params``' own tensors are left without grad."""
+    structure (zeros at a leaf the loss does not use). ``params``' own
+    tensors are left without grad."""
     fresh = "torch._dynamo" not in sys.modules
     pairs = tree_lib.leaves(params)
     xs = [x.detach().requires_grad_() for _, x in pairs]
     loss = loss_fn(tree_lib.unflatten(zip((p for p, _ in pairs), xs)),
                    *args)
-    grads = torch.autograd.grad(loss, xs)
+    # a leaf the loss does not reach (NequIP's last gate weights, which
+    # gate only the vectors and tensors the readout drops) gets a zero
+    # gradient, as under ``jax.grad``
+    grads = torch.autograd.grad(loss, xs, allow_unused=True,
+                                materialize_grads=True)
     out = loss.detach(), tree_lib.unflatten(zip((p for p, _ in pairs),
                                                 grads))
     del xs, loss, grads
@@ -128,7 +133,7 @@ def state_from_reference(cfg: T.TransformerConfig, ref_state,
     ``opt.v``, ``opt.step`` and ``err``) as the port's, bit for bit, on
     ``device``; the params are checked against ``cfg``'s shapes."""
     dev = resolve_device(device)
-    want = tree_lib.leaves(T.param_shapes(cfg))
+    want = tree_lib.leaves(T.param_shapes(cfg), tree_lib.is_shape)
     got = tree_lib.leaves(ref_state["params"])
     shapes = [(p, tuple(np.shape(a))) for p, a in got]
     if shapes != want:

@@ -23,10 +23,13 @@ from repro_torch.core.adjacency import dense_adj_from_graph
 from repro_torch.core.mfbc import mfbc
 from repro_torch.graphs.generators import path_graph
 from repro_torch.configs import get_arch
+from repro_torch.configs.base import batch_to_torch
 from repro_torch.launch import bc_run, serve
 from repro_torch.launch import train as launch_train
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.train.train_lib import make_lm_train_step
+from repro_torch.models import gnn as G
+from repro_torch.models import recsys as R
 from repro_torch.models import transformer as T
 from repro_torch.serve.engine import ServeEngine
 
@@ -82,6 +85,9 @@ _MODULES = {
     "repro_torch.train.train_lib", "repro_torch.launch.train",
     "repro_torch.data", "repro_torch.data.pipeline",
     "repro_torch.graphs.sampler",
+    # slice 7c: the GNN and recsys families
+    "repro_torch.models.gnn", "repro_torch.models.recsys",
+    "repro_torch.models.gnn_dist", "repro_torch.configs.gnn_archs",
 }
 
 _BANNED = re.compile(r"^\s*(?:import|from)\s+(?:jax|repro)\b", re.MULTILINE)
@@ -181,3 +187,15 @@ def test_entry_points_default_to_the_card(monkeypatch):
         make_lm_train_step(cfg, AdamWConfig())
     with pytest.raises(RuntimeError, match="device='cpu'"):
         T.init_tree(cfg, torch.Generator().manual_seed(0))
+    # slice 7c: the GNN and recsys parameters, batches and cells
+    gcn = get_arch("gcn-cora")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        G.gcn_init(gcn.config(smoke=True), torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        R.init_params(get_arch("xdeepfm").config(smoke=True),
+                      torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        batch_to_torch(gcn.numpy_batch("molecule", smoke=True))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        gcn.build(gcn.cells()["molecule"], smoke=True).concrete_args(
+            torch.Generator().manual_seed(0))
