@@ -271,6 +271,36 @@ order; any failed check raises and the script exits non-zero:
        1e-6 of the single-device GCN; seconds a step; bytes a rank by
        kind, one forward's equal to |H|/R + |H|/C.
     Phase 13 runs none of the three kernels either.
+14. the paper's own architecture, the dry run and a sharded LM step:
+    a. ``get_arch("mfbc_paper")``'s ``bc_dense_64k`` cell built with
+       ``NO_SHARDING`` at its full n = 65,536 and 6 iterations, its A
+       built on the card from ``erdos_renyi(n, 4/n, seed=1)``'s arcs, the
+       batch cut from 16,384 to 64 sources (``BC64K_NB``): ``bundle.fn``
+       launches both products at (64, 65536, 65536); λ finite and ≥
+       -1e-6; the step's seconds and peak memory; the step again under
+       ``torch.profiler`` (busy share, top kernels). Then one relax of each
+       product at that shape against its plain version on 128 output
+       columns: one whole 64-column tile at a seeded offset and 64
+       columns ``k * 1021 % n``, at every offset in a tile (``w``, ``c``
+       bitwise, ``m`` rtol 1e-6, ``p`` rtol 1e-5), and timed beside its
+       bound; the iterations MFBF and MFBr need uncapped on the graph;
+       each product at bc_web_256k's per-device shape on the multi mesh,
+       (4096, 16384, 16384), held on 128 columns chosen the same way and
+       timed beside its bound and the tile model
+       (``launch.perf_hillclimb.hillclimb_bc_blocks``);
+    b. ``python -m repro_torch.launch.dryrun`` of one cell a family on
+       the multi mesh (512 fake ranks on the host), each in a subprocess
+       (all four at once), then ``roofline.analysis`` over the records:
+       each record's per-device peak bytes, FLOPs and wire bytes;
+    c. gemma2-27b at full width, 2 layers, bf16, the train cell's step
+       (``build(cell, make_policy(mesh))``: int8 moments, CE in 8 chunks)
+       on a one-rank NCCL (1, 1, 1) DeviceMesh, its parameters DTensors
+       placed by the policy, 3 steps of 2,048 tokens; its losses against
+       the same step without a mesh on the card (rtol 1e-5), and its
+       parameters after the last step against that step's (the norm of
+       their difference within 1e-3 of the norm of the update, which
+       must not be 0).
+    Phase 14a's step is a main-path run of the dense kernels.
 
 Each main-path run (phases 3, 4, 5a, 5b on the dense kernels, 6c and 6d
 on the sparse relax, every run of 7a, 7c and 7d on its backend's
@@ -366,6 +396,12 @@ from repro_torch.train.train_lib import (make_lm_train_step,  # noqa: E402
 from repro_torch.models import gnn as G  # noqa: E402
 from repro_torch.models import gnn_dist as GD  # noqa: E402
 from repro_torch.models import recsys as R  # noqa: E402
+from repro_torch.core.mfbr import mfbr  # noqa: E402
+from repro_torch.launch import perf_hillclimb  # noqa: E402
+from repro_torch.launch.mesh import make_device_mesh  # noqa: E402
+from repro_torch.roofline import analysis as roofline  # noqa: E402
+from repro_torch.sharding.rules import (NO_SHARDING,  # noqa: E402
+                                        make_policy)
 
 INF = float("inf")
 DEV = torch.device("cuda")
@@ -3545,6 +3581,289 @@ def phase13(g18) -> None:
                              f"kernels: {ran}")
 
 
+# -- phase 14: the paper's own architecture, the dry run, a sharded LM ------
+
+BC64K_NB = 64  # bc_dense_64k's 16,384 sources cut to 64 (PERF.md §4)
+BC64K_COLS = 128  # output columns of a relax held against its plain version
+WEB_SHAPE = (4096, 16384, 16384)  # bc_web_256k's per-device product, multi
+DRYRUN_CELLS = (("gemma2-27b", "decode_32k"), ("gcn-cora", "molecule"),
+                ("xdeepfm", "serve_p99"), ("mfbc_paper", "bc_dense_64k"))
+LM14_LAYERS, LM14_SEQ, LM14_STEPS = 2, 2048, 3
+LM14_RTOL = 1e-5  # the losses; the card's runs measured them bitwise equal
+LM14_PARAM_TOL = 1e-3  # |p_sharded - p_unsharded| over |p_unsharded - p_0|
+
+
+def check_columns(n: int, seed: int) -> torch.Tensor:
+    """``BC64K_COLS`` output columns of an (nb, k, n) product: the whole
+    64-column tile (``BN``) at a seeded tile offset, then 64 columns
+    ``k * 1021 % n``, which fall at every offset within their tiles."""
+    tile = BN * int(torch.randint(n // BN, (1,), generator=torch.Generator(
+    ).manual_seed(seed)))
+    strided = torch.arange(BC64K_COLS - BN) * 1021 % n
+    return torch.cat([torch.arange(tile, tile + BN), strided]).to(DEV)
+
+
+def column_check(name: str, args, cols: torch.Tensor, where: str) -> float:
+    """One launch of ``name`` on ``args`` against its plain version on the
+    columns ``cols`` of the adjacency operand, a few at a time (the plain
+    version holds an (nb, k, columns) candidate)."""
+    k = KERNELS[name]
+    got = k["wrapper"](*args)
+    torch.cuda.synchronize()
+    nb, kk = args[0].shape
+    step = max(1, 2**31 // (4 * nb * kk))
+    err = 0.0
+    for i in range(0, len(cols), step):
+        c = cols[i:i + step]
+        want = k["plain"](args[0], args[1], args[2][:, c].contiguous())
+        err = max(err, compare(name, [g[:, c] for g in got], want, where))
+        del want
+    del got
+    return err
+
+
+def phase14a(launches, errs: dict) -> dict:
+    """mfbc_paper x bc_dense_64k on one card; returns the products' ms at
+    (64, 65536, 65536) and at ``WEB_SHAPE``."""
+    spec = get_arch("mfbc_paper")
+    cell = spec.cells()["bc_dense_64k"]
+    n, iters = cell.meta["n"], cell.meta["iters"]
+    b = spec.build(cell, NO_SHARDING)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    a, src, valid = b.concrete_args(None, DEV, nb=BC64K_NB)
+    torch.cuda.synchronize()
+    t_a = time.perf_counter() - t0
+    arcs = int(torch.isfinite(a).sum())
+    log(f"14a: mfbc_paper x bc_dense_64k: n={n}, {arcs} arcs "
+        f"(erdos_renyi(n, 4/n, seed=1)), A built on the card in "
+        f"{t_a:.3f}s ({a.numel() * 4 / 1e9:.2f} GB); batch {BC64K_NB} of "
+        f"the cell's {cell.batch} sources, {iters} iterations")
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lam = b.fn(a, src, valid)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    got = tally(launches, DENSE_PATH, "14a")
+    b.check(lam)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"14a: step {dt:.3f}s, launches {got}, peak device memory "
+        f"{peak / 2**30:.2f} GiB; λ finite, min {float(lam.min()):.6g}, "
+        f"max {float(lam.max()):.6g}")
+    del lam
+    torch.cuda.empty_cache()
+    prof = profiled(lambda: b.fn(a, src, valid), 1, top=8, width=64)
+    log(f"14a: the step under torch.profiler: {prof['wall']:.3f}s, busy "
+        f"{prof['busy']}; top kernels (ms): "
+        + "; ".join(f"{k} {v:.3f}" for k, v in prof["top"]))
+    torch.cuda.empty_cache()
+
+    adj = DenseAdj(a, block=256)
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(14)
+    f_w = adj.gather_rows(src.long())
+    active = torch.rand((BC64K_NB, n), generator=gen, device=DEV) < 0.5
+    c_w = torch.where(active, torch.randint(0, 20, (BC64K_NB, n),
+                                            generator=gen,
+                                            device=DEV).float(), -INF)
+    args = {"multpath_mm": (f_w, torch.isfinite(f_w).float(), adj.a),
+            "centpath_mm": (c_w, torch.where(active, torch.rand(
+                (BC64K_NB, n), generator=gen, device=DEV), 0.0), adj.at)}
+    cols = check_columns(n, 14)
+    shape = (BC64K_NB, n, n)
+    out = {}
+    for name in KERNELS:
+        errs[name] = max(errs[name], column_check(
+            name, args[name], cols, f"14a {shape} ({BC64K_COLS} columns)"))
+        out[name] = time_kernel(name, args[name], shape, with_plain=False)
+    log(f"14a: both products match their plain versions at {shape} on "
+        f"{BC64K_COLS} columns (w, c bitwise; m rtol 1e-6, p rtol 1e-5)")
+    del args, f_w, c_w, active
+    Tw, Tm, tr_bf = mfbf(adj, src.long(), trace=True)
+    Tw[torch.arange(BC64K_NB, device=DEV), src.long()] = INF
+    Tm[torch.arange(BC64K_NB, device=DEV), src.long()] = 1.0
+    _, tr_br = mfbr(adj, Tw, Tm, trace=True)
+    log(f"14a: uncapped, MFBF runs {tr_bf.iters} iterations and MFBr "
+        f"{tr_br.iters} on this graph; the cell caps both at {iters} "
+        f"({'truncates' if max(tr_bf.iters, tr_br.iters) > iters else 'no truncation'})")
+    del adj, Tw, Tm, a
+    torch.cuda.empty_cache()
+
+    web = {}
+    for name in KERNELS:
+        fw, f2, adjw = inputs("random", name, *WEB_SHAPE, gen)
+        cw = check_columns(WEB_SHAPE[2], 15)
+        errs[name] = max(errs[name], column_check(
+            name, (fw, f2, adjw), cw,
+            f"14a {WEB_SHAPE} ({BC64K_COLS} columns)"))
+        web[name] = time_kernel(name, (fw, f2, adjw), WEB_SHAPE,
+                                with_plain=False)
+        del fw, f2, adjw
+        torch.cuda.empty_cache()
+    rec = perf_hillclimb.hillclimb_bc_blocks(
+        {name: web[name][0] for name in KERNELS})
+    for name, m in rec["kernel_tile_model"].items():
+        log(f"14a: bcblock {name} at {WEB_SHAPE}: measured "
+            f"{web[name][0]:.3f} ms; tile model {m['bytes'] / 1e9:.3f} GB "
+            f"({1e3 * m['t_memory_s']:.3f} ms at 3.35 TB/s), "
+            f"{1e3 * m['t_compute_s']:.3f} ms of instructions")
+    return {"dense_64k": out, "web": web}
+
+
+def phase14b() -> None:
+    """One dry-run cell a family on the multi mesh, in subprocesses
+    started together, then the roofline over their records."""
+    out = os.path.join(ROOT, "build", "dryrun_smoke")
+    if os.path.isdir(out):
+        for f in os.listdir(out):
+            os.remove(os.path.join(out, f))
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    procs = [(cell, subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         cell[0], "--shape", cell[1], "--mesh", "multi", "--out", out],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)) for cell in DRYRUN_CELLS]
+    for cell, proc in procs:
+        try:
+            so, se = proc.communicate(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+        if proc.returncode != 0:
+            raise AssertionError(f"14b: dry run of {cell} failed "
+                                 f"(rc {proc.returncode}): {se[-3000:]}")
+        for line in so.strip().splitlines():
+            if line.startswith("[dryrun]"):
+                log(f"14b: {line}")
+    rows = roofline.main(["--dryrun", out, "--out",
+                          out + "_roofline.md", "--json-out",
+                          out + "_roofline.json"])
+    recs = {(r["arch"], r["shape"]): r for r in roofline.load_all(out)}
+    if len(rows) != len(DRYRUN_CELLS):
+        raise AssertionError(f"14b: {len(rows)} roofline rows, expected "
+                             f"{len(DRYRUN_CELLS)}")
+    for r in rows:
+        rec = recs[(r["arch"], r["shape"])]
+        if not rec["flops_per_device"] >= 0 or rec["n_devices"] != 512:
+            raise AssertionError(f"14b: bad record {rec}")
+        log(f"14b: {r['arch']} x {r['shape']} x multi: peak/dev "
+            f"{rec['memory']['peak_bytes']} B, flops/dev "
+            f"{rec['flops_per_device']:.6g}, wire/dev "
+            f"{rec['collectives']['wire_bytes']:.6g} B; roofline "
+            f"{r['dominant']}, step ≥ {r['t_step_s']:.6g} s")
+    log(f"14b: {len(rows)} cells in {time.perf_counter() - t0:.1f}s")
+
+
+def _param_leaves(tree) -> list:
+    """The parameter tree's leaves as plain tensors (a one-rank mesh's
+    DTensor holds the whole tensor)."""
+    return [t.full_tensor() if hasattr(t, "full_tensor") else t
+            for _, t in sorted(tree_lib.leaves(tree), key=lambda pt: pt[0])]
+
+
+def _norm(pairs) -> float:
+    """The norm of the differences of the pairs of tensors."""
+    return float(sum(float(((a.float() - b.float()) ** 2).sum())
+                     for a, b in pairs)) ** 0.5
+
+
+def phase14c() -> None:
+    """The sharded LM train step on a one-rank NCCL mesh against the same
+    step without a mesh: the losses, and the parameters after the last
+    step."""
+    spec = get_arch(TRAIN_ARCH)
+    cell = spec.cells()["train_4k"]
+    toks = None
+    losses, final, update = {}, None, {}
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_device_mesh((1, 1, 1), ("pod", "data", "model"),
+                                device_type="cuda")
+        for label, policy in (("sharded", make_policy(mesh)),
+                              ("unsharded", NO_SHARDING)):
+            cfg = dataclasses.replace(spec.config(), n_layers=LM14_LAYERS,
+                                      dtype=torch.bfloat16)
+            gen = torch.Generator(device=DEV)
+            gen.manual_seed(0)
+            tree = T.init_tree(cfg, gen, DEV)
+            if toks is None:
+                toks = torch.randint(0, cfg.vocab, (1, LM14_SEQ),
+                                     generator=gen, device=DEV)
+            if policy.mesh is not None:  # the train cell's own step
+                tree = T.place_params(cfg, tree, policy)
+                fn = spec.build(cell, policy,
+                                layers_override=LM14_LAYERS).fn
+            else:
+                opt_cfg = adamw.AdamWConfig(moment_dtype="int8")
+
+                def fn(params, state, x, y):
+                    loss, grads = value_and_grad(
+                        lambda p: T.loss_fn((cfg, p), x, y, chunks=8),
+                        params)
+                    params, state, m = adamw.update(opt_cfg, grads, state,
+                                                    params)
+                    return params, state, {"loss": loss, **m}
+            state = adamw.init_state(tree, "int8")
+            start = [t.detach().clone() for t in _param_leaves(tree)]
+            got = []
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(LM14_STEPS):
+                tree, state, m = fn(tree, state, toks, toks)
+                got.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            losses[label] = got
+            log(f"14c: gemma2-27b, {LM14_LAYERS} layers, bf16, "
+                f"{LM14_SEQ} tokens, {label}: losses {got} in "
+                f"{time.perf_counter() - t0:.3f}s")
+            end = _param_leaves(tree)
+            update[label] = _norm(zip(end, start))
+            if final is None:
+                final = [t.detach().clone() for t in end]
+            else:
+                diff = _norm(zip(final, end))
+            del tree, state, fn, start, end
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    del final
+    np.testing.assert_allclose(losses["sharded"], losses["unsharded"],
+                               rtol=LM14_RTOL)
+    for x in losses["sharded"]:
+        if not np.isfinite(x):
+            raise AssertionError("14c: non-finite loss")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses["sharded"],
+                                                  losses["unsharded"]))
+    if not (update["sharded"] > 0 and update["unsharded"] > 0
+            and diff <= LM14_PARAM_TOL * update["unsharded"]):
+        raise AssertionError(f"14c: parameters after step {LM14_STEPS}: "
+                             f"|sharded - unsharded| {diff:.6g}, updates "
+                             f"{update}")
+    log(f"14c: the one-rank (1, 1, 1) mesh step holds the unsharded "
+        f"step's losses, max relative difference {rel:.3g} "
+        f"(rtol {LM14_RTOL}); parameters after step {LM14_STEPS}: "
+        f"|sharded - unsharded| {diff:.6g} against updates "
+        f"{update['sharded']:.6g} / {update['unsharded']:.6g} "
+        f"(tolerance {LM14_PARAM_TOL} of the update)")
+
+
+def phase14(launches, errs: dict) -> dict:
+    t = time.perf_counter()
+    times = phase14a(launches, errs)
+    log(f"14a in {time.perf_counter() - t:.1f}s")
+    t = time.perf_counter()
+    phase14b()
+    log(f"14b in {time.perf_counter() - t:.1f}s")
+    t = time.perf_counter()
+    phase14c()
+    log(f"14c in {time.perf_counter() - t:.1f}s")
+    return times
+
+
 def graph(scale: int):
     g, _ = rmat(scale, 16, seed=0, weighted=True, max_weight=100
                 ).remove_isolated()
@@ -3826,6 +4145,12 @@ def main() -> None:
     t13 = time.perf_counter()
     phase13(g18)
     log(f"phase 13 in {time.perf_counter() - t13:.1f}s; the script in "
+        f"{time.perf_counter() - t_start:.1f}s")
+
+    # 14. the paper's own architecture, the dry run, a sharded LM step
+    t14 = time.perf_counter()
+    phase14(launches, errs)
+    log(f"phase 14 in {time.perf_counter() - t14:.1f}s; the script in "
         f"{time.perf_counter() - t_start:.1f}s")
 
     rows = [{"name": name, "route": "cuda", "source": k["source"],

@@ -7,16 +7,21 @@ provides an ``ArchSpec`` with:
 * ``config(smoke=False)`` — the exact published configuration (or a tiny
   reduced config of the same family for CPU smoke tests);
 * ``cells()``             — its input-shape cells (the 4 assigned shapes);
-* ``build(cell, smoke)``  — a ``StepBundle``: the step function, the
-  layer loop's trip count, the analytic MODEL_FLOPS, and a maker of
-  concrete arguments with a check of the outputs.
+* ``build(cell, policy, smoke)`` — a ``StepBundle``: the step function,
+  the layer loop's trip count, the analytic MODEL_FLOPS, a maker of the
+  step's abstract arguments (uninitialized: fake tensors under a
+  ``FakeTensorMode``, DTensors placed by ``policy`` under a mesh) and a
+  maker of concrete arguments with a check of the outputs.
 
-The reference's bundles also carry abstract, sharded arguments for its
-dry-run, which has no counterpart without XLA (slice 7d); its mesh
-branch (bf16 weights, int8 moments, chunked CE; the GNN batch padded to
-512 nodes and edges) waits for it too, so a train cell takes the
-reference's one-device policy: f32 weights and moments, plain CE. The BC
-family is slice 7d.
+With a mesh in ``policy`` a cell takes the reference's production
+policy: bf16 LM weights and cache, int8 moments, CE in 8 chunks; the GNN
+batch padded to multiples of 512 nodes and edges; sharded placements.
+Without one, the one-device policy: f32 weights and moments, plain CE.
+
+The paper's own architecture, ``BCArch`` (``mfbc_paper``): its
+one-device step is ``mfbc_batch`` over a ``DenseAdj`` (the Hopper
+products on the card), its mesh step the Theorem 5.1 step of
+``core.dist_bc`` at the cell's fixed iteration count.
 
 The reference's concrete arguments draw the weights from a key and the
 GNN and recsys inputs from ``np.random.default_rng`` (the key unused).
@@ -40,6 +45,8 @@ from repro_torch.models import gnn as G
 from repro_torch.models import recsys as R
 from repro_torch.models import transformer as T
 from repro_torch.optim import adamw
+from repro_torch.sharding.rules import (NO_SHARDING, ShardingPolicy, abstract,
+                                        scope)
 from repro_torch.train.train_lib import value_and_grad
 
 
@@ -60,6 +67,8 @@ class StepBundle:
     # (generator, device="cuda") -> args, drawn from the generator's stream
     concrete_args: Optional[Callable] = None
     check: Optional[Callable] = None  # outputs -> None (smoke assertions)
+    # () -> args, uninitialized (``sharding.abstract``), placed by the policy
+    abstract_args: Optional[Callable] = None
 
 
 class ArchSpec:
@@ -72,8 +81,14 @@ class ArchSpec:
     def cells(self) -> Dict[str, Cell]:
         raise NotImplementedError
 
-    def build(self, cell: Cell, smoke: bool = False) -> StepBundle:
+    def build(self, cell: Cell, policy: ShardingPolicy = NO_SHARDING,
+              smoke: bool = False) -> StepBundle:
         raise NotImplementedError
+
+
+def _batch_sharding(policy: ShardingPolicy, shape):
+    return policy.named_for_shape(("batch",) + (None,) * (len(shape) - 1),
+                                  shape)
 
 
 # ---------------------------------------------------------------------------
@@ -123,31 +138,49 @@ class LMArch(ArchSpec):
     def cells(self) -> Dict[str, Cell]:
         return LM_CELLS
 
-    def build(self, cell: Cell, smoke: bool = False,
-              layers_override: int = 0) -> StepBundle:
+    def build(self, cell: Cell, policy: ShardingPolicy = NO_SHARDING,
+              smoke: bool = False, layers_override: int = 0) -> StepBundle:
         cfg = self.config(smoke)
         if layers_override:
             cfg = dataclasses.replace(cfg, n_layers=layers_override)
+        mesh = policy.mesh is not None
+        if mesh:
+            # production dtype policy: bf16 params/grads/KV-cache, int8
+            # optimizer moments, f32 loss
+            cfg = dataclasses.replace(cfg, dtype=torch.bfloat16)
+        cache_dtype = torch.bfloat16 if mesh else torch.float32
         c = (LM_SMOKE_CELLS if smoke else LM_CELLS)[cell.shape_id]
         B, S = c.batch, c.seq
         n_active = cfg.n_active_params()
         trips = {"while": cfg.n_layers}
+
+        def toks_abstract(shape):
+            return abstract(shape, torch.long, _batch_sharding(policy, shape))
 
         def tokens(generator, shape, device):
             return torch.randint(0, cfg.vocab, shape, generator=generator,
                                  device=generator.device).to(device)
 
         if c.kind == "train":
-            opt_cfg = adamw.AdamWConfig(moment_dtype="f32")
+            opt_cfg = adamw.AdamWConfig(
+                moment_dtype="int8" if mesh else "f32")
+            ce_chunks = 8 if mesh else 1
 
             def step(params, opt_state, toks, targets):
                 """One AdamW step on the stacked tree ``params``, updated
                 in place with ``opt_state`` (the reference donates both)."""
-                loss, grads = value_and_grad(
-                    lambda p: T.loss_fn((cfg, p), toks, targets), params)
-                params, opt_state, metrics = adamw.update(
-                    opt_cfg, grads, opt_state, params)
+                with scope(policy):
+                    loss, grads = value_and_grad(
+                        lambda p: T.loss_fn((cfg, p), toks, targets, policy,
+                                            chunks=ce_chunks), params)
+                    params, opt_state, metrics = adamw.update(
+                        opt_cfg, grads, opt_state, params)
                 return params, opt_state, {"loss": loss, **metrics}
+
+            def abstract_args():
+                p = T.abstract_params(cfg, policy)
+                return (p, adamw.abstract_state(p, opt_cfg.moment_dtype),
+                        toks_abstract((B, S)), toks_abstract((B, S)))
 
             def concrete(generator, device="cuda"):
                 p = T.init_tree(cfg, generator, device)
@@ -157,11 +190,20 @@ class LMArch(ArchSpec):
                         toks)
 
             return StepBundle(step, trips, 6.0 * n_active * B * S,
-                              concrete_args=concrete, check=_check_loss)
+                              concrete_args=concrete, check=_check_loss,
+                              abstract_args=abstract_args)
+
+        def abstract_cache():
+            return T.cache_abstract(cfg, B, S, policy, dtype=cache_dtype)
 
         if c.kind == "prefill":
             def step(model, toks, cache):
-                return T.prefill(model, toks, cache)
+                with torch.no_grad():
+                    return T.prefill(model, toks, cache, policy)
+
+            def abstract_args():
+                return ((cfg, T.abstract_params(cfg, policy)),
+                        toks_abstract((B, S)), abstract_cache())
 
             def concrete(generator, device="cuda"):
                 model = T.init_params(cfg, generator, device)
@@ -169,11 +211,17 @@ class LMArch(ArchSpec):
                         T.init_cache(cfg, B, S, device=model.device))
 
             return StepBundle(step, trips, 2.0 * n_active * B * S,
-                              concrete_args=concrete, check=_check_logits)
+                              concrete_args=concrete, check=_check_logits,
+                              abstract_args=abstract_args)
 
         # decode
         def step(model, token, pos, cache):
-            return T.decode_step(model, token, pos, cache)
+            with torch.no_grad():
+                return T.decode_step(model, token, pos, cache, policy)
+
+        def abstract_args():
+            return ((cfg, T.abstract_params(cfg, policy)),
+                    toks_abstract((B, 1)), S // 2, abstract_cache())
 
         def concrete(generator, device="cuda"):
             model = T.init_params(cfg, generator, device)
@@ -185,7 +233,8 @@ class LMArch(ArchSpec):
         attn_flops = 4.0 * B * S * cfg.n_kv * cfg.hd * (cfg.n_heads // cfg.n_kv)
         return StepBundle(step, trips,
                           2.0 * n_active * B + cfg.n_layers * attn_flops,
-                          concrete_args=concrete, check=_check_logits)
+                          concrete_args=concrete, check=_check_logits,
+                          abstract_args=abstract_args)
 
 
 # ---------------------------------------------------------------------------
@@ -368,12 +417,47 @@ class GNNArch(ArchSpec):
                {"n_out": 1} if self.kind == "nequip" else
                {"n_classes": meta["classes"]}))
 
-    def build(self, cell: Cell, smoke: bool = False) -> StepBundle:
+    # the logical axes of each batch field (the reference's shardings)
+    _FIELD_AXES = {"x": ("model", None), "pos": ("model", None),
+                   "src": ("batch",), "dst": ("batch",),
+                   "edge_pad": ("batch",), "labels": ("model",),
+                   "deg": ("model",), "graph_ids": ("model",)}
+    _FIELD_DTYPE = {"x": torch.float32, "pos": torch.float32,
+                    "deg": torch.float32, "edge_pad": torch.bool}
+
+    def abstract_batch(self, shape_id: str, policy: ShardingPolicy,
+                       smoke: bool = False):
+        """The cell's batch uninitialized (``sharding.abstract``): under a
+        mesh nodes and edges padded to multiples of 512 (padding nodes are
+        isolated; padding edges hit the dummy slot), each field placed as
+        the reference's; ids int64. Returns ``(batch, n1, E)``; a molecule
+        batch's ``n_graphs`` is left to the step, as a static int."""
+        meta = self.meta(shape_id, smoke)
+        fields, n1, E, n_graphs = self._layout(shape_id, meta)
+        if policy.mesh is not None:
+            n1, E = -(-n1 // 512) * 512, -(-E // 512) * 512
+        b = {}
+        for k, (shape, _) in fields.items():
+            logical = self._FIELD_AXES[k]
+            if k == "labels" and n_graphs is not None:
+                logical = (None,)  # one label a graph, unsharded
+            elif logical[0] == "batch":
+                shape = (E,) + shape[1:]
+            else:
+                shape = (n1,) + shape[1:]
+            b[k] = abstract(shape, self._FIELD_DTYPE.get(k, torch.long),
+                            policy.named(logical))
+        return b, n1, E
+
+    def build(self, cell: Cell, policy: ShardingPolicy = NO_SHARDING,
+              smoke: bool = False) -> StepBundle:
         meta = self.meta(cell.shape_id, smoke)
         is_mol = cell.shape_id == "molecule"
         cfg = self.cell_config(cell.shape_id, smoke)
         opt_cfg = adamw.AdamWConfig(weight_decay=0.0)
         _, n1, E, static_ng = self._layout(cell.shape_id, meta)
+        if policy.mesh is not None:
+            n1, E = -(-n1 // 512) * 512, -(-E // 512) * 512
 
         def loss(params, batch):
             if static_ng is not None:
@@ -388,15 +472,15 @@ class GNNArch(ArchSpec):
                 logits = G._seg_sum(logits, batch["graph_ids"],
                                     batch["n_graphs"])
             logz = torch.logsumexp(logits, dim=-1)
-            gold = torch.gather(logits, 1, batch["labels"].long()[:, None])
-            return torch.mean(logz - gold[:, 0])
+            return torch.mean(logz - _label_logit(logits, batch["labels"]))
 
         def step(params, opt_state, batch):
             """One AdamW step, ``params`` and ``opt_state`` updated in
             place (the reference donates both)."""
-            lv, grads = value_and_grad(loss, params, batch)
-            params, opt_state, metrics = adamw.update(opt_cfg, grads,
-                                                      opt_state, params)
+            with scope(policy):
+                lv, grads = value_and_grad(loss, params, batch)
+                params, opt_state, metrics = adamw.update(opt_cfg, grads,
+                                                          opt_state, params)
             return params, opt_state, {"loss": lv, **metrics}
 
         def concrete(generator, device="cuda"):
@@ -404,8 +488,18 @@ class GNNArch(ArchSpec):
             return (p, adamw.init_state(p),
                     self.torch_batch(cell.shape_id, generator, smoke, device))
 
+        def abstract_args():
+            """Replicated parameters (the reference's unsharded ones), the
+            state, the placed batch."""
+            p = G.INIT[self.kind](cfg, torch.Generator().manual_seed(0),
+                                  "cpu")
+            p = _tree_abstract(p, policy)
+            return (p, adamw.abstract_state(p),
+                    self.abstract_batch(cell.shape_id, policy, smoke)[0])
+
         return StepBundle(step, {}, self._flops(meta, n1, E),
-                          concrete_args=concrete, check=_check_loss)
+                          concrete_args=concrete, check=_check_loss,
+                          abstract_args=abstract_args)
 
 
 # ---------------------------------------------------------------------------
@@ -427,6 +521,26 @@ RECSYS_SMOKE_CELLS = {
     "retrieval_cand": Cell("retrieval_cand", "retrieval", batch=1,
                            meta=dict(n_candidates=512)),
 }
+
+
+def _label_logit(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Each row's logit at its label. Over DTensors a select-and-sum (the
+    gathered value exactly, for finite logits): DTensor's gather along a
+    sharded dim cannot reduce its partial result."""
+    if not G._sharded(logits, labels):
+        return torch.gather(logits, 1, labels.long()[:, None])[:, 0]
+    classes = torch.arange(logits.shape[-1], device=labels.device)
+    return torch.where(classes == labels.long()[:, None], logits, 0.0).sum(-1)
+
+
+def _tree_abstract(tree, policy: ShardingPolicy):
+    """``tree``'s leaves as uninitialized tensors of their shapes and
+    dtypes, replicated under a mesh."""
+    from repro_torch import tree as tree_lib
+
+    return tree_lib.tree_map(
+        lambda t: abstract(tuple(t.shape), t.dtype,
+                           policy.named((None,) * t.ndim)), tree)
 
 
 def _check_finite(out) -> None:
@@ -473,7 +587,8 @@ class RecsysArch(ArchSpec):
         return [a.astype(np.float32 if a.ndim == 1 else np.int32)
                 for a in out]
 
-    def build(self, cell: Cell, smoke: bool = False) -> StepBundle:
+    def build(self, cell: Cell, policy: ShardingPolicy = NO_SHARDING,
+              smoke: bool = False) -> StepBundle:
         cfg = self.config(smoke)
         c = (RECSYS_SMOKE_CELLS if smoke else RECSYS_CELLS)[cell.shape_id]
         B = c.batch
@@ -489,6 +604,20 @@ class RecsysArch(ArchSpec):
             fl += 2.0 * B * d_mlp * h
             d_mlp = h
         shapes, _ = self._shapes(cfg, cell.shape_id, smoke)
+
+        def abstract_args():
+            """The placed parameters (and state), ids int64 over the batch
+            axes (a retrieval query replicated), train labels f32."""
+            p = R.abstract_params(cfg, policy)
+            ins = []
+            for shape, _ in shapes:
+                logical = (("batch",) + (None,) * (len(shape) - 1)
+                           if shape[0] > 1 else (None,) * len(shape))
+                ins.append(abstract(shape, torch.float32 if len(shape) == 1
+                                    else torch.long,
+                                    policy.named(logical)))
+            return ((p, adamw.abstract_state(p)) if c.kind == "train"
+                    else (p,)) + tuple(ins)
 
         def concrete(generator, device="cuda"):
             """Parameters (and the train cell's optimizer state) and the
@@ -509,29 +638,159 @@ class RecsysArch(ArchSpec):
             def step(params, opt_state, ids, labels):
                 """One AdamW step, in place (the reference donates
                 ``params`` and ``opt_state``)."""
-                lv, grads = value_and_grad(
-                    lambda p: R.bce_loss(cfg, p, ids, labels), params)
-                params, opt_state, metrics = adamw.update(
-                    opt_cfg, grads, opt_state, params)
+                with scope(policy):
+                    lv, grads = value_and_grad(
+                        lambda p: R.bce_loss(cfg, p, ids, labels, policy),
+                        params)
+                    params, opt_state, metrics = adamw.update(
+                        opt_cfg, grads, opt_state, params)
                 return params, opt_state, {"loss": lv, **metrics}
 
             return StepBundle(step, {}, 3.0 * fl, concrete_args=concrete,
-                              check=_check_loss)
+                              check=_check_loss, abstract_args=abstract_args)
 
         if c.kind == "serve":
             def step(params, ids):
-                with torch.no_grad():
-                    return R.forward(cfg, params, ids)
+                with torch.no_grad(), scope(policy):
+                    return R.forward(cfg, params, ids, policy)
 
             return StepBundle(step, {}, fl, concrete_args=concrete,
-                              check=_check_finite)
+                              check=_check_finite,
+                              abstract_args=abstract_args)
 
         N = c.meta["n_candidates"]
 
         def step(params, qids, cids):
-            with torch.no_grad():
-                return R.retrieval_score(cfg, params, qids, cids)
+            with torch.no_grad(), scope(policy):
+                return R.retrieval_score(cfg, params, qids, cids, policy)
 
         fl_ret = 2.0 * N * (cfg.n_fields * cfg.embed_dim + cfg.embed_dim)
         return StepBundle(step, {}, fl_ret, concrete_args=concrete,
-                          check=_check_finite)
+                          check=_check_finite, abstract_args=abstract_args)
+
+
+# ---------------------------------------------------------------------------
+# The paper's own architecture: MFBC batch step.
+# ---------------------------------------------------------------------------
+
+BC_CELLS = {
+    "bc_web_256k": Cell("bc_web_256k", "train", batch=8192,
+                        meta=dict(n=262144, iters=8)),
+    "bc_dense_64k": Cell("bc_dense_64k", "train", batch=16384,
+                         meta=dict(n=65536, iters=6)),
+}
+
+BC_SMOKE_CELLS = {
+    "bc_web_256k": Cell("bc_web_256k", "train", batch=8,
+                        meta=dict(n=48, iters=6)),
+    "bc_dense_64k": Cell("bc_dense_64k", "train", batch=12,
+                         meta=dict(n=32, iters=5)),
+}
+
+
+def dense_from_graph_on(g, device) -> torch.Tensor:
+    """``graphs.formats.coo_to_dense(g)`` built on ``device`` from the
+    arcs: ``inf`` off-structure, the min over duplicate arcs, an ``inf``
+    diagonal; no dense array on the host."""
+    n = g.n
+    a = torch.full((n * n,), float("inf"), dtype=torch.float32,
+                   device=device)
+    src = torch.from_numpy(np.asarray(g.src, np.int64)).to(device)
+    dst = torch.from_numpy(np.asarray(g.dst, np.int64)).to(device)
+    w = torch.from_numpy(np.asarray(g.w, np.float32)).to(device)
+    a.scatter_reduce_(0, src * n + dst, w, reduce="amin")
+    a = a.view(n, n)
+    a.diagonal().fill_(float("inf"))
+    return a
+
+
+def _check_lambda(lam) -> None:
+    if not bool(torch.isfinite(lam).all()):
+        raise AssertionError("non-finite λ")
+    if not bool((lam >= -1e-6).all()):
+        raise AssertionError(f"negative λ: {float(lam.min())}")
+
+
+class BCArch(ArchSpec):
+    """MFBC itself: one device's dense batch step, or the Theorem 5.1 step
+    on the production mesh."""
+
+    family = "bc"
+    arch_id = "mfbc_paper"
+
+    def config(self, smoke: bool = False):
+        return {"use_kernel": not smoke}
+
+    def cells(self) -> Dict[str, Cell]:
+        return BC_CELLS
+
+    def build(self, cell: Cell, policy: ShardingPolicy = NO_SHARDING,
+              smoke: bool = False) -> StepBundle:
+        """Under a mesh, the per-rank ``core.dist_bc`` step at the cell's
+        fixed iteration count, no stop test (the reference's
+        ``unroll=True`` lowering): its abstract arguments are this rank's
+        blocks. Without one, ``mfbc_batch`` over ``DenseAdj(a, block=256)``,
+        ``fori`` at the cell's ``iters``; the sources are the caller's
+        (``concrete_args(..., nb=)`` cuts the batch)."""
+        c = (BC_SMOKE_CELLS if smoke else BC_CELLS)[cell.shape_id]
+        n, nb, iters = c.meta["n"], c.batch, c.meta["iters"]
+        flops = self._flops(n, nb, iters)
+
+        if policy.mesh is not None:
+            from repro_torch.core import dist_bc
+            from repro_torch.launch.mesh import Mesh
+
+            dm = policy.mesh
+            mesh = Mesh(tuple(dm.shape), tuple(dm.mesh_dim_names),
+                        device=dm.device_type)
+            pod = "pod" if "pod" in dm.mesh_dim_names else None
+            cfg = dist_bc.BCMeshConfig(n=n, nb=nb, iters_bf=iters,
+                                       iters_br=iters, pod_axis=pod,
+                                       unroll=True)
+            step = dist_bc.build_mfbc_step(mesh, cfg)
+            shp = dist_bc.local_shapes(mesh, cfg)
+
+            def abstract_args():
+                dev = mesh.device
+                return (torch.empty(shp["a"], device=dev),
+                        torch.empty(shp["at"], device=dev),
+                        torch.empty(shp["sources"], dtype=torch.int32,
+                                    device=dev),
+                        torch.empty(shp["valid"], dtype=torch.bool,
+                                    device=dev))
+
+            return StepBundle(step, {}, flops, abstract_args=abstract_args)
+
+        from repro_torch.core.adjacency import DenseAdj
+        from repro_torch.core.mfbc import mfbc_batch
+
+        def step(a, sources, valid):
+            with torch.no_grad():
+                return mfbc_batch(DenseAdj(a, block=256), sources, valid,
+                                  iterate="fori", max_iters_bf=iters,
+                                  max_iters_br=iters)[0]
+
+        def concrete(generator=None, device="cuda", nb: int = nb):
+            """A on ``device`` from ``erdos_renyi(n, 4/n, seed=1)``'s arcs
+            (``dense_from_graph_on``), sources ``0..nb-1``, all valid."""
+            from repro_torch.graphs.generators import erdos_renyi
+
+            dev = resolve_device(device)
+            g = erdos_renyi(n, 4.0 / n, seed=1)
+            return (dense_from_graph_on(g, dev),
+                    torch.arange(nb, dtype=torch.int32, device=dev),
+                    torch.ones(nb, dtype=torch.bool, device=dev))
+
+        def abstract_args():
+            return (torch.empty((n, n)), torch.empty((nb,), dtype=torch.int32),
+                    torch.empty((nb,), dtype=torch.bool))
+
+        return StepBundle(step, {"while": iters}, flops,
+                          concrete_args=concrete, check=_check_lambda,
+                          abstract_args=abstract_args)
+
+    @staticmethod
+    def _flops(n, nb, iters):
+        # each relax: nb*n*n candidate min-plus updates (~4 vector flops),
+        # 2(d+1) relaxes per batch (MFBF + MFBr)
+        return 4.0 * nb * n * n * 2 * (iters + 1)

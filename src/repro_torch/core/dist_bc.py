@@ -71,6 +71,10 @@ class BCMeshConfig:
     # The kernels' contraction split count on the card (None: each product
     # picks its own); fixed, a row's tie sums do not depend on its batch.
     splits: Optional[int] = None
+    # Run every one of the ``iters`` iterations with no stop test (no
+    # collective flag, no host read): the reference's static loop, which a
+    # step traced without data (the dry run) needs.
+    unroll: bool = False
 
     @property
     def batch_axes(self):
@@ -171,7 +175,8 @@ def _batch_delta_local(mesh, cfg: BCMeshConfig, a_loc, at_loc, sources_loc,
     F = T
     for _ in range(cfg.iters_bf):
         n_stop += 1
-        if not mesh.any_rank(torch.isfinite(F.w) & (F.m > 0)):
+        if not cfg.unroll and not mesh.any_rank(torch.isfinite(F.w)
+                                                & (F.m > 0)):
             break
         n_mp += 1
         C = _dist_relax_mp(mesh, cfg, F, a_loc)
@@ -198,7 +203,7 @@ def _batch_delta_local(mesh, cfg: BCMeshConfig, a_loc, at_loc, sources_loc,
 
     for _ in range(cfg.iters_br):
         n_stop += 1
-        if not mesh.any_rank(newly):
+        if not cfg.unroll and not mesh.any_rank(newly):
             break
         n_cp += 1
         Pc = _dist_relax_cp(mesh, cfg, frontier(newly), at_loc)
@@ -210,6 +215,30 @@ def _batch_delta_local(mesh, cfg: BCMeshConfig, a_loc, at_loc, sources_loc,
 
     mask = finite & valid_loc[:, None]
     return torch.where(mask, Zp * T.m, 0.0), mask, (n_mp, n_cp, n_stop)
+
+
+def local_shapes(mesh, cfg: BCMeshConfig) -> Dict[str, tuple]:
+    """This rank's argument shapes of ``build_mfbc_step``'s step: its
+    blocks of A and Aᵀ (n/model, n/data) and its source rows."""
+    blk = (cfg.n // mesh.size(cfg.model_axis),
+           cfg.n // mesh.size(cfg.data_axis))
+    rows = (cfg.nb // mesh.size(cfg.batch_axes),)
+    return {"a": blk, "at": blk, "sources": rows, "valid": rows}
+
+
+def build_mfbc_step(mesh, cfg: BCMeshConfig):
+    """The per-rank Theorem 5.1 batch step (the reference's
+    ``build_mfbc_step``): ``step(a_loc, at_loc, sources_loc, valid_loc)``
+    returns this rank's λ contribution, (n/model,) in the interleaved
+    column order, summed over the batch axes. Every rank of ``mesh``
+    calls it with its ``local_shapes`` blocks."""
+    def step(a_loc, at_loc, sources_loc, valid_loc):
+        contrib, _, _ = _batch_delta_local(mesh, cfg, a_loc, at_loc,
+                                           sources_loc, valid_loc)
+        return mesh.all_reduce(contrib.sum(dim=0), cfg.batch_axes,
+                               dist.ReduceOp.SUM, kind="batch")
+
+    return step
 
 
 def model_mesh_bytes(n: int, nb: int, iters: int, axes: Dict[str, int],

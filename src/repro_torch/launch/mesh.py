@@ -206,3 +206,27 @@ def make_debug_mesh(*, multi_pod: bool = False, device="cuda") -> Mesh:
     if multi_pod:
         return Mesh((2, 2, 2), ("pod", "data", "model"), device=device)
     return Mesh((4, 2), ("data", "model"), device=device)
+
+
+def make_device_mesh(shape: Sequence[int], names: Sequence[str], *,
+                     device_type: str = "cuda"):
+    """A ``DeviceMesh`` of ``shape`` named ``names`` over the initialized
+    world, ranks row-major (the last axis fastest): the mesh the model
+    families' DTensors (``sharding.rules``) live on."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    if not dist.is_initialized():
+        raise RuntimeError("a device mesh needs the default process group: "
+                           "call torch.distributed.init_process_group first")
+    return init_device_mesh(device_type, tuple(int(s) for s in shape),
+                            mesh_dim_names=tuple(names))
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: str = "cuda"):
+    """The production ``DeviceMesh``: (16, 16) (data, model) = 256 ranks,
+    or (2, 16, 16) (pod, data, model) = 512. The dry run builds it over a
+    fake world on the host (``device_type="cpu"``)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_device_mesh(shape, axes, device_type=device_type)

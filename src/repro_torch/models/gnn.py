@@ -47,7 +47,93 @@ from repro_torch.train.checkpoint import (params_from_reference,  # noqa: F401
 Params = Dict[str, Any]
 
 
+def _sharded(*ts) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return any(isinstance(t, DTensor) for t in ts)
+
+
+def _row_placements(idx):
+    """Placements of a tensor whose rows follow ``idx``'s (a DTensor's
+    dim-0 sharding, replicated on its other mesh dims)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    return [Shard(0) if p == Shard(0) else Replicate()
+            for p in idx.placements]
+
+
+def _as_dtensor(t, mesh):
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if isinstance(t, DTensor):
+        return t
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def _gather_sharded(x, idx):
+    """``_gather`` over DTensors, as GSPMD partitions message passing (the
+    paper's 1D variant C): ``x`` all-gathered, each rank gathering the
+    rows of its own ids; the result is sharded as ``idx``. The gathered
+    copy's gradient is partial over the dims ``idx`` is sharded on."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = (idx if isinstance(idx, DTensor) else x).device_mesh
+    x, idx = _as_dtensor(x, mesh), _as_dtensor(idx, mesh)
+    grad_pl = [Partial() if p == Shard(0) else Replicate()
+               for p in idx.placements]
+    full = x.redistribute(mesh, [Replicate()] * mesh.ndim).to_local(
+        grad_placements=grad_pl)
+    out = torch.index_select(full, 0, idx.to_local())
+    shape = (idx.shape[0],) + tuple(x.shape[1:])
+    return DTensor.from_local(out, mesh, _row_placements(idx),
+                              run_check=False, shape=shape,
+                              stride=torch.empty(shape, device="meta")
+                              .stride())
+
+
+def _segment_sharded(fn, x, idx, n: int, op: str):
+    """A segment reduction over DTensors: ``x`` placed as ``idx``, each
+    rank reducing its own rows into a full (n, ·) partial, ``Partial(op)``
+    over the mesh dims ``idx`` is sharded on, all-reduced: the paper's 1D
+    variant C (a full-size partial and its all-reduce, ~2|H| bytes a
+    rank), which GSPMD makes of the reference's segment sums."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = (idx if isinstance(idx, DTensor) else x).device_mesh
+    x, idx = _as_dtensor(x, mesh), _as_dtensor(idx, mesh)
+    x = x.redistribute(mesh, _row_placements(idx))
+    out = fn(x.to_local(), idx.to_local(), n)
+    pl = [Partial(op) if p == Shard(0) else Replicate()
+          for p in idx.placements]
+    shape = (n,) + tuple(x.shape[1:])
+    out = DTensor.from_local(out, mesh, pl, run_check=False, shape=shape,
+                             stride=torch.empty(shape, device="meta")
+                             .stride())
+    return out.redistribute(mesh, [Replicate()] * mesh.ndim)
+
+
+# NequIP's contractions as matmuls and sums, for DTensors: DTensor's
+# einsum flattens dims into a bmm whose shardings it cannot propagate
+_EINSUM_SHARDED = {
+    "eci,ei->ec": lambda a, b: (a * b[:, None, :]).sum(-1),
+    "ecij,ej->eci": lambda a, b: (a * b[:, None, None, :]).sum(-1),
+    "ncx,cd->ndx": lambda a, b: (a.transpose(1, 2) @ b).transpose(1, 2),
+    "ncxy,cd->ndxy": lambda a, b: (a.permute(0, 2, 3, 1) @ b
+                                   ).permute(0, 3, 1, 2),
+    "ncxy,ncxy->nc": lambda a, b: (a * b).sum((-2, -1)),
+}
+
+
+def _einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    if _sharded(a, b):
+        return _EINSUM_SHARDED[eq](a, b)
+    return torch.einsum(eq, a, b)
+
+
 def _gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    if _sharded(x, idx):
+        return _gather_sharded(x, idx)
     return torch.index_select(x, 0, idx)
 
 
@@ -69,12 +155,16 @@ class _SegSum(torch.autograd.Function):
 
 
 def _seg_sum(x: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
+    if _sharded(x, idx):
+        return _segment_sharded(_SegSum.apply, x, idx, n, "sum")
     return _SegSum.apply(x, idx, n)
 
 
 def _seg_max(x: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
     """Each segment's max, ``-inf`` for an empty one (as the reference's
     ``segment_max``)."""
+    if _sharded(x, idx):
+        return _segment_sharded(_seg_max, x, idx, n, "max")
     out = x.new_full((n,) + x.shape[1:], -math.inf)
     index = idx.long().reshape((-1,) + (1,) * (x.ndim - 1)).expand_as(x)
     return out.scatter_reduce_(0, index, x, "amax", include_self=False)
@@ -331,10 +421,10 @@ def nequip_forward(cfg: NequIPConfig, p: Params, batch) -> torch.Tensor:
         sj, vj, tj = _gather(s, src), _gather(v, src), _gather(t, src)
         # l-mixing message paths (Cartesian CG products, l <= 2):
         m_s = w[..., 0] * sj                                      # 0⊗0→0
-        m_s = m_s + w[..., 1] * torch.einsum("eci,ei->ec", vj, u)  # 1⊗1→0
+        m_s = m_s + w[..., 1] * _einsum("eci,ei->ec", vj, u)  # 1⊗1→0
         m_v = w[..., 2, None] * vj                                 # 1⊗0→1
         m_v = m_v + w[..., 3, None] * sj[..., None] * u[:, None, :]  # 0⊗1→1
-        m_v = m_v + w[..., 4, None] * torch.einsum("ecij,ej->eci", tj,
+        m_v = m_v + w[..., 4, None] * _einsum("ecij,ej->eci", tj,
                                                    u)             # 2⊗1→1
         m_t = (w[..., 5, None, None] * sj[..., None, None]
                * Y2[:, None])                                     # 0⊗2→2
@@ -343,12 +433,12 @@ def nequip_forward(cfg: NequIPConfig, p: Params, batch) -> torch.Tensor:
         agg_t = _seg_sum(m_t, dst, n1)
         # channel mixing (equivariant: acts on channel dim only)
         s_n = agg_s @ lp["mix_s"]
-        v_n = torch.einsum("ncx,cd->ndx", agg_v, lp["mix_v"])
-        t_n = torch.einsum("ncxy,cd->ndxy", agg_t, lp["mix_t"])
+        v_n = _einsum("ncx,cd->ndx", agg_v, lp["mix_v"])
+        t_n = _einsum("ncxy,cd->ndxy", agg_t, lp["mix_t"])
         # invariants -> gates
         inv = torch.cat(
             [s_n, torch.sum(v_n * v_n, -1),
-             torch.einsum("ncxy,ncxy->nc", t_n, t_n)], dim=-1)  # (n1, 3C)
+             _einsum("ncxy,ncxy->nc", t_n, t_n)], dim=-1)  # (n1, 3C)
         gates = torch.sigmoid(inv @ lp["gate_w"]).reshape(n1, 2, C)
         upd = F.silu(inv @ lp["upd_w1"]) @ lp["upd_w2"]
         s = s + upd

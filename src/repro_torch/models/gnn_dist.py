@@ -32,8 +32,9 @@ their bytes in ``Mesh.comm_bytes`` under the mesh's kinds: the
 reduce-scatters and the sums as ``tie_sum``, the all-gathers as
 ``gather``.
 
-The reference's ``abstract_inputs`` (its dry-run's sharded stand-ins)
-waits for slice 7d.
+``abstract_inputs`` gives this rank's ``rank_inputs``, uninitialized
+(fake under a ``FakeTensorMode``): the reference's sharded stand-ins as
+the per-rank blocks the port's SPMD step takes.
 """
 from __future__ import annotations
 
@@ -154,6 +155,20 @@ def rank_inputs(mesh: Mesh, g: Grid2D, x, src, dst, coef, labels, mask):
     return (put(x[rows]), put(src[b], torch.long), put(dst[b], torch.long),
             put(coef[b]), put(labels[rows], torch.long),
             put(mask[rows], torch.bool))
+
+
+def abstract_inputs(mesh: Mesh, g: Grid2D, d_in: int):
+    """This rank's ``rank_inputs`` uninitialized, by name: x (n_loc, d_in);
+    src/dst int64 and coef f32 (e_max,), its bucket; labels int64 and
+    mask bool (n_loc,)."""
+    dev = mesh.device
+    e = (g.e_max,)
+    return {"x": torch.empty((g.n_loc, d_in), device=dev),
+            "src": torch.empty(e, dtype=torch.long, device=dev),
+            "dst": torch.empty(e, dtype=torch.long, device=dev),
+            "coef": torch.empty(e, device=dev),
+            "labels": torch.empty((g.n_loc,), dtype=torch.long, device=dev),
+            "mask": torch.empty((g.n_loc,), dtype=torch.bool, device=dev)}
 
 
 # --- device-side 2D GCN -----------------------------------------------------

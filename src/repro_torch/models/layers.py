@@ -85,6 +85,21 @@ def _write(cache: torch.Tensor, new: torch.Tensor, pos: int) -> None:
     cache[:, pos:pos + S] = new.to(cache.dtype)
 
 
+def project_qkv(cfg: AttnConfig, p: Params, x: torch.Tensor,
+                positions: torch.Tensor):
+    """Attention's q (rotated, scaled), k (rotated) and v: (B, S, heads,
+    hd)."""
+    B, S, _ = x.shape
+    H, K, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"]).reshape(B, S, H, hd)
+    k = torch.einsum("bsd,dhk->bshk", x, p["wk"]).reshape(B, S, K, hd)
+    v = torch.einsum("bsd,dhk->bshk", x, p["wv"]).reshape(B, S, K, hd)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    scale = cfg.query_scale if cfg.query_scale is not None else hd ** -0.5
+    return q * scale, k, v
+
+
 def attention(cfg: AttnConfig, p: Params, x: torch.Tensor,
               positions: torch.Tensor, *,
               mask: Optional[torch.Tensor] = None,
@@ -100,13 +115,7 @@ def attention(cfg: AttnConfig, p: Params, x: torch.Tensor,
     """
     B, S, _ = x.shape
     H, K, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"]).reshape(B, S, H, hd)
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"]).reshape(B, S, K, hd)
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"]).reshape(B, S, K, hd)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
-    scale = cfg.query_scale if cfg.query_scale is not None else hd ** -0.5
-    q = q * scale
+    q, k, v = project_qkv(cfg, p, x, positions)
 
     if kv_cache is not None:
         ck, cv = kv_cache
@@ -178,13 +187,22 @@ class MoeConfig:
     d_ff_shared: int = 0
 
 
-def moe_block(cfg: MoeConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+def moe_block(cfg: MoeConfig, p: Params, x: torch.Tensor,
+              policy=None, experts: Optional[Tuple[int, int]] = None
+              ) -> torch.Tensor:
     """Capacity-based top-k MoE with sort-based dispatch: each (token,
     choice) takes its rank within its expert from one stable sort; past
     ``cap`` it goes to the drop slot ``E·cap``. Tokens are scatter-added
     into an (E, cap, d) buffer, the experts run as one batched einsum, and
     the gated outputs are scatter-added back to their tokens
     (``index_add_``: in index order on the CPU, by atomics on the card).
+    With a ``policy``, the expert-major buffers are constrained to
+    (expert, batch, ·): the token→expert resharding is the MoE's
+    all-to-all. ``experts=(lo, hi)``: ``p``'s expert weights are experts
+    lo..hi-1 only (one rank's under expert parallelism); the routing is
+    over all ``n_experts``, choices of other experts are dropped, and the
+    output is this rank's part of the sum (the shared experts' included:
+    their weights are this rank's shards too).
     """
     B, S, D = x.shape
     T = B * S
@@ -203,18 +221,29 @@ def moe_block(cfg: MoeConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     flat_tok = torch.arange(T, device=dev).repeat_interleave(K)
     order = torch.argsort(flat_e, stable=True)
     sorted_e = flat_e[order]
-    counts = torch.bincount(flat_e, minlength=E)  # (E,)
+    # (E,): a scatter-add, not ``bincount``, whose output size depends on
+    # the data (a fake tensor has none)
+    counts = torch.zeros(E, dtype=flat_e.dtype, device=dev).scatter_add_(
+        0, flat_e, torch.ones_like(flat_e))
     starts = torch.cumsum(counts, 0) - counts
     rank = torch.empty_like(flat_e)
     rank[order] = torch.arange(T * K, device=dev) - starts[sorted_e]
     keep = rank < cap
+    if experts is not None:  # this rank's experts only
+        lo, hi = experts
+        keep = keep & (flat_e >= lo) & (flat_e < hi)
+        flat_e, E = flat_e - lo, hi - lo
     slot = torch.where(keep, flat_e * cap + rank, E * cap)  # drop -> scratch
 
     buf = torch.zeros(E * cap + 1, D, dtype=x.dtype, device=dev)
     buf.index_add_(0, slot, xt[flat_tok])
     buf = buf[:E * cap].reshape(E, cap, D)
+    if policy is not None:
+        buf = policy.constrain(buf, ("expert", "batch", None))
     h = _act(cfg.act)(torch.einsum("ecd,edf->ecf", buf, p["w_gate"]))
     h = h * torch.einsum("ecd,edf->ecf", buf, p["w_up"])
+    if policy is not None:
+        h = policy.constrain(h, ("expert", "batch", None))
     yb = torch.einsum("ecf,efd->ecd", h, p["w_down"]).reshape(E * cap, D)
     yb = torch.cat([yb, torch.zeros(1, D, dtype=yb.dtype, device=dev)])
     gate = torch.where(keep, flat_g, torch.zeros((), dtype=flat_g.dtype,
@@ -303,5 +332,5 @@ class MoeBlock(LayerParams):
         super().__init__(shapes, dtype=dtype, device=device)
         self.cfg = cfg
 
-    def forward(self, x):
-        return moe_block(self.cfg, self.tree(), x)
+    def forward(self, x, policy=None):
+        return moe_block(self.cfg, self.tree(), x, policy)

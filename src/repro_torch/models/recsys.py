@@ -11,9 +11,13 @@ CIN (Compressed Interaction Network): x^{k+1}_h = Σ_{i,j} W^k_{h,i,j}
 outer product (B, H_k, m, D), then its contraction with W^k), sum-pooled
 over the embedding dim into the final logit.
 
-The reference's ``abstract_params`` (its dry-run's sharded shape
-stand-ins) waits for slice 7d; ``init_shapes`` keeps the (shape,
-logical axes) pairs as data.
+``init_shapes`` keeps the (shape, logical axes) pairs as data;
+``abstract_params`` gives the tree uninitialized (fake or meta), placed
+by a policy's ``named`` of each leaf's logical axes. As in the
+reference, the table's and ``linear``'s axes are one tuple for their row
+dim, ``("model", "fsdp")``, which no rule names: they stay replicated.
+``forward``, ``bce_loss`` and ``retrieval_score`` take ``policy`` and
+constrain the ids and the candidates to the batch axes.
 """
 from __future__ import annotations
 
@@ -26,6 +30,7 @@ import torch.nn.functional as F
 
 from repro_torch import resolve_device
 from repro_torch import tree as tree_lib
+from repro_torch.sharding.rules import abstract
 # the parameter tree's round trip to the reference
 from repro_torch.train.checkpoint import (params_from_reference,  # noqa: F401
                                          params_to_numpy)
@@ -123,6 +128,26 @@ def init_shapes(cfg: XDeepFMConfig):
     }
 
 
+def abstract_params(cfg: XDeepFMConfig, policy=None, device="cpu"):
+    """The parameter tree uninitialized (``sharding.abstract``), each leaf
+    placed by ``policy.named`` of its logical axes under a mesh."""
+    def walk(t):
+        if isinstance(t, dict):
+            return {k: walk(v) for k, v in t.items()}
+        if isinstance(t, list):
+            return [walk(v) for v in t]
+        shape, logical = t
+        sh = policy.named(logical) if policy is not None \
+            and policy.mesh is not None else None
+        return abstract(shape, torch.float32, sh, device)
+
+    return walk(init_shapes(cfg))
+
+
+def _constrain(policy, x, logical):
+    return x if policy is None else policy.constrain(x, logical)
+
+
 def embedding_bag(table: torch.Tensor, ids: torch.Tensor, weights=None,
                   combine: str = "sum") -> torch.Tensor:
     """ids: (B, F, H) flat-vocab ids (H = bag size). -> (B, F, D).
@@ -140,11 +165,11 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor, weights=None,
     return torch.mean(emb, dim=2)
 
 
-def forward(cfg: XDeepFMConfig, p: Params, ids: torch.Tensor
-            ) -> torch.Tensor:
+def forward(cfg: XDeepFMConfig, p: Params, ids: torch.Tensor,
+            policy=None) -> torch.Tensor:
     """ids: (B, n_fields, multi_hot) flat ids -> logits (B,)."""
     B = ids.shape[0]
-    ids = ids.long()
+    ids = _constrain(policy, ids.long(), ("batch", None, None))
     x0 = embedding_bag(p["table"], ids)  # (B, m, D)
     lin = torch.sum(F.embedding(ids, p["linear"][:, None])[..., 0],
                     dim=(1, 2))  # (B,)
@@ -169,14 +194,14 @@ def forward(cfg: XDeepFMConfig, p: Params, ids: torch.Tensor
 
 
 def bce_loss(cfg: XDeepFMConfig, p: Params, ids: torch.Tensor,
-             labels: torch.Tensor) -> torch.Tensor:
-    logits = forward(cfg, p, ids)
+             labels: torch.Tensor, policy=None) -> torch.Tensor:
+    logits = forward(cfg, p, ids, policy)
     return torch.mean(torch.clamp(logits, min=0) - logits * labels
                       + torch.log1p(torch.exp(-torch.abs(logits))))
 
 
 def retrieval_score(cfg: XDeepFMConfig, p: Params, query_ids: torch.Tensor,
-                    cand_ids: torch.Tensor) -> torch.Tensor:
+                    cand_ids: torch.Tensor, policy=None) -> torch.Tensor:
     """retrieval_cand cell: one query (1, F, H) against N candidate items.
 
     Candidates are represented by their item-field ids (N, Fc, H). Scoring
@@ -186,5 +211,5 @@ def retrieval_score(cfg: XDeepFMConfig, p: Params, query_ids: torch.Tensor,
     q = embedding_bag(p["table"], query_ids)  # (1, F, D)
     qv = q.mean(dim=1)  # (1, D)
     c = embedding_bag(p["table"], cand_ids)  # (N, Fc, D)
-    cv = c.mean(dim=1)  # (N, D)
+    cv = _constrain(policy, c.mean(dim=1), ("batch", None))  # (N, D)
     return cv @ qv[0]  # (N,)

@@ -32,9 +32,15 @@ keeps each layer's input only, ``"dots"`` the products' outputs
 (``torch.utils.checkpoint``, non-reentrant; values never change).
 
 The cache is written in place (the reference returns an updated copy);
-``prefill`` and ``decode_step`` return the same tensors. The sharding
-helpers (``abstract_params``, ``param_logical_axes``, ``cache_abstract``)
-have no counterpart without a mesh of the LM.
+``prefill`` and ``decode_step`` return the same tensors.
+
+Sharding (``repro_torch.sharding``): ``param_logical_axes`` names each
+parameter's logical axes, ``abstract_params`` / ``cache_abstract`` give
+uninitialized (fake or meta) trees, DTensors placed by a policy with a
+mesh. The entry points take ``policy`` (default ``NO_SHARDING``: no
+effect) and constrain activations where the reference does: a layer's
+output and the embedding to (batch, seq, ·), the logits to (batch, ·,
+vocab), the MoE's expert buffers to (expert, batch, ·).
 """
 from __future__ import annotations
 
@@ -44,12 +50,16 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils import checkpoint as ckpt
 
 from repro_torch import resolve_device
 from repro_torch import tree as tree_lib
 from repro_torch.models import layers as L
+from repro_torch.sharding.rules import (NO_SHARDING, ShardingPolicy,
+                                        abstract, place, replicate_over,
+                                        scope)
 
 Params = Dict[str, Any]
 GLOBAL = 1 << 30  # the window of a global layer
@@ -186,6 +196,91 @@ def param_shapes(cfg: TransformerConfig) -> Dict[str, Any]:
     return tree
 
 
+def param_logical_axes(cfg: TransformerConfig, model_size: int = 1
+                       ) -> Dict[str, Any]:
+    """Logical sharding axes per parameter (layer dim first for stacks).
+
+    KV heads shard over ``model`` only when divisible (GQA/MQA with few KV
+    heads replicates them — the standard TP treatment); the KV *cache* then
+    shards its sequence dim instead (see ``cache_abstract``).
+    """
+    kv_ax = "model" if model_size > 0 and cfg.n_kv % max(model_size, 1) == 0 \
+        else None
+    lax_ = {
+        "attn": {
+            "wq": (None, "fsdp", "model", None),
+            "wk": (None, "fsdp", kv_ax, None),
+            "wv": (None, "fsdp", kv_ax, None),
+            "wo": (None, "model", "fsdp"),
+        },
+        "norm_attn": {"scale": (None, None)},
+        "norm_mlp": {"scale": (None, None)},
+    }
+    if cfg.block_style == "sandwich":
+        lax_["norm_attn_post"] = {"scale": (None, None)}
+        lax_["norm_mlp_post"] = {"scale": (None, None)}
+    if cfg.moe is not None:
+        lax_["moe"] = {
+            "router": (None, "fsdp", None),
+            "w_gate": (None, "expert", "fsdp", None),
+            "w_up": (None, "expert", "fsdp", None),
+            "w_down": (None, "expert", None, "fsdp"),
+        }
+        if cfg.moe.n_shared:
+            lax_["moe"]["shared"] = {"w_gate": (None, "fsdp", "model"),
+                                     "w_up": (None, "fsdp", "model"),
+                                     "w_down": (None, "model", "fsdp")}
+    elif cfg.mlp_style == "plain":
+        lax_["mlp"] = {"w_up": (None, "fsdp", "model"),
+                       "w_down": (None, "model", "fsdp")}
+    else:
+        lax_["mlp"] = {"w_gate": (None, "fsdp", "model"),
+                       "w_up": (None, "fsdp", "model"),
+                       "w_down": (None, "model", "fsdp")}
+    tree = {
+        "embedding": ("vocab", "fsdp"),
+        "final_norm": {"scale": (None,)},
+        "layers": lax_,
+    }
+    if not cfg.tie_embeddings:
+        tree["lm_head"] = ("fsdp", "vocab")
+    return tree
+
+
+def _logical_at(logical: Params, path) -> Tuple:
+    for k in path:
+        logical = logical[k]
+    return logical
+
+
+def abstract_params(cfg: TransformerConfig,
+                    policy: ShardingPolicy = NO_SHARDING, device="cpu"
+                    ) -> Params:
+    """The stacked parameter tree, uninitialized (``sharding.abstract``:
+    fake under a ``FakeTensorMode``), each leaf placed by
+    ``policy.named`` of its logical axes when the policy has a mesh."""
+    logical = param_logical_axes(cfg, policy.model_size)
+    return tree_lib.unflatten(
+        (path, abstract(shape, cfg.dtype,
+                        policy.named(_logical_at(logical, path)), device))
+        for path, shape in tree_lib.leaves(param_shapes(cfg),
+                                           tree_lib.is_shape))
+
+
+def place_params(cfg: TransformerConfig, tree: Params,
+                 policy: ShardingPolicy) -> Params:
+    """A stacked parameter tree whose leaves are the same on every rank,
+    as DTensors placed by ``policy.named`` of their logical axes (each
+    rank keeps its shards; no collective). ``tree`` itself without a
+    mesh."""
+    if policy.mesh is None:
+        return tree
+    logical = param_logical_axes(cfg, policy.model_size)
+    return tree_lib.unflatten(
+        (path, place(t, policy.named(_logical_at(logical, path))))
+        for path, t in tree_lib.leaves(tree))
+
+
 # ---------------------------------------------------------------------------
 # Modules.
 # ---------------------------------------------------------------------------
@@ -219,38 +314,300 @@ class Block(nn.Module):
         return {k: m.tree() for k, m in self._modules.items()}
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
-                kv_cache=None, cache_pos: Optional[int] = None):
+                kv_cache=None, cache_pos: Optional[int] = None,
+                policy: ShardingPolicy = NO_SHARDING):
         return block(self.cfg, self.window, self.tree(), x, positions,
-                     kv_cache=kv_cache, cache_pos=cache_pos)
+                     kv_cache=kv_cache, cache_pos=cache_pos, policy=policy)
 
 
 def block(cfg: TransformerConfig, window: int, lp: Params, x: torch.Tensor,
           positions: torch.Tensor, kv_cache=None,
-          cache_pos: Optional[int] = None):
+          cache_pos: Optional[int] = None,
+          policy: ShardingPolicy = NO_SHARDING):
     """One layer on its parameters ``lp`` (the reference's layer tree);
-    returns (out, cache)."""
+    returns (out, cache), ``out`` constrained to (batch, seq, ·). Over
+    DTensors whose layout allows it, the sublayers run per rank
+    (``_block_tp``)."""
+    if policy.mesh is not None:  # the layer's input layout
+        x = policy.constrain(x, ("batch", "seq", None))
+    if policy.mesh is not None and _tp_layout(cfg, x, kv_cache) is not None:
+        a, ffn = _block_tp(cfg, window, lp, x, positions, kv_cache,
+                           cache_pos, policy)
+        cache = kv_cache
+    else:
+        def ffn(h):
+            if cfg.moe is None:
+                return L.gated_mlp(cfg.mlp, lp["mlp"], h)
+            return L.moe_block(cfg.moe, lp["moe"], h, policy)
+
+        T = kv_cache[0].shape[1] if kv_cache is not None else x.shape[1]
+        h = L.rms_norm(x, lp["norm_attn"]["scale"])
+        a, cache = L.attention(cfg.attn, lp["attn"], h, positions,
+                               mask=_window_mask(positions, T, window),
+                               kv_cache=kv_cache, cache_pos=cache_pos)
+    out = _residual(cfg, lp, x, a, ffn)
+    return policy.constrain(out, ("batch", "seq", None)), cache
+
+
+def _window_mask(positions: torch.Tensor, T: int, window: int):
+    """(B or 1, S, T): which of the ``T`` cache positions each query at
+    ``positions`` sees through its window (causality is attention's)."""
     q_pos = positions if positions.ndim > 1 else positions[None, :]
-    T = kv_cache[0].shape[1] if kv_cache is not None else x.shape[1]
-    kv_pos = torch.arange(T, device=x.device)
-    wmask = kv_pos[None, None, :] > (q_pos[:, :, None] - window)
+    kv_pos = torch.arange(T, device=q_pos.device)
+    return kv_pos[None, None, :] > (q_pos[:, :, None] - window)
 
-    def ffn(h):
-        if cfg.moe is None:
-            return L.gated_mlp(cfg.mlp, lp["mlp"], h)
-        return L.moe_block(cfg.moe, lp["moe"], h)
 
-    h = L.rms_norm(x, lp["norm_attn"]["scale"])
-    a, cache = L.attention(cfg.attn, lp["attn"], h, positions, mask=wmask,
-                           kv_cache=kv_cache, cache_pos=cache_pos)
+def _residual(cfg: TransformerConfig, lp: Params, x, a, ffn):
+    """The layer's residual and norm wiring (``block_style``) around its
+    input ``x``, its attention output ``a`` and its feed-forward ``ffn``."""
     if cfg.block_style == "parallel":
-        return x + a + ffn(L.rms_norm(x, lp["norm_mlp"]["scale"])), cache
+        return x + a + ffn(L.rms_norm(x, lp["norm_mlp"]["scale"]))
     if cfg.block_style == "sandwich":
         a = L.rms_norm(a, lp["norm_attn_post"]["scale"])
     x = x + a
     m = ffn(L.rms_norm(x, lp["norm_mlp"]["scale"]))
     if cfg.block_style == "sandwich":
         m = L.rms_norm(m, lp["norm_mlp_post"]["scale"])
-    return x + m, cache
+    return x + m
+
+
+def _tp_layout(cfg: TransformerConfig, x, kv_cache):
+    """The ``model`` mesh dim when ``x`` is a DTensor sharded over its
+    batch only (replicated over ``model``), the query heads split evenly
+    over ``model``, and a cache (if any) shards its batch and heads, or
+    its sequence alone with ``x`` replicated; else None."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if not isinstance(x, DTensor):
+        return None
+    names = x.device_mesh.mesh_dim_names
+    if "model" not in names:
+        return None
+    md = names.index("model")
+    if any(p not in (Shard(0), Replicate()) for p in x.placements) or \
+            x.placements[md] != Replicate():
+        return None
+    if cfg.n_heads % x.device_mesh.size(md):
+        return None
+    if kv_cache is not None and not isinstance(kv_cache[0], DTensor):
+        return None
+    if kv_cache is not None and not (
+            all(p in (Shard(0), Shard(2), Replicate())
+                for p in kv_cache[0].placements)
+            or (all(p in (Shard(1), Replicate())
+                    for p in kv_cache[0].placements)
+                and x.placements == (Replicate(),) * x.device_mesh.ndim)):
+        return None
+    return md
+
+
+def _shard_range(t, dim: int) -> Tuple[int, int]:
+    """(offset, length) of this rank's shard of DTensor ``t`` along
+    ``dim`` (torch.chunk's split, over the mesh dims in order)."""
+    mesh, lo, n = t.device_mesh, 0, t.shape[dim]
+    coord = mesh.get_coordinate()
+    for i, p in enumerate(t.placements):
+        if p.is_shard(dim):
+            full = -(-n // mesh.size(i))
+            lo, n = lo + coord[i] * full, max(0, min(full,
+                                                     n - coord[i] * full))
+    return lo, n
+
+
+def _attention_seq_sharded(cfg: TransformerConfig, window: int, lp: Params,
+                           h, positions, kv_cache, cache_pos: int):
+    """Attention over a cache whose sequence is sharded (``kv_seq``: a
+    batch-1 long-context cell), per rank, as a split softmax: each rank
+    projects every head (the weights gathered), writes the new keys it
+    holds, and attends over its slice of the cache; the slices' maxima,
+    sums and weighted values are all-reduced over the sequence's mesh
+    dims. Returns this rank's partial (over ``model``) of the output
+    projection: its rows of ``wo``. No gradient flows (a decode path)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = h.device_mesh
+    names = mesh.mesh_dim_names
+    full = {k: replicate_over(v, names).to_local()
+            for k, v in lp.items() if k != "wo"}
+    acfg = cfg.attn
+    x = h.to_local()
+    B, S, _ = x.shape
+    K, g, hd = cfg.n_kv, cfg.n_heads // cfg.n_kv, cfg.hd
+    q, k, v = L.project_qkv(acfg, full, x, positions)
+    ck, cv = (c.to_local() for c in kv_cache)
+    lo, rows = _shard_range(kv_cache[0], 1)
+    a, b = max(cache_pos, lo), min(cache_pos + S, lo + rows)
+    if a < b:  # the new positions this rank holds
+        ck[:, a - lo:b - lo] = k[:, a - cache_pos:b - cache_pos].to(ck.dtype)
+        cv[:, a - lo:b - lo] = v[:, a - cache_pos:b - cache_pos].to(cv.dtype)
+    q_pos = positions if positions.ndim > 1 else positions[None, :]
+    kv_pos = torch.arange(lo, lo + rows, device=x.device)[None, None, :]
+    causal = (kv_pos <= q_pos[:, :, None]) \
+        & (kv_pos > q_pos[:, :, None] - window) & (kv_pos < cache_pos + S)
+    logits = torch.einsum("bskgh,btkh->bkgst", q.reshape(B, S, K, g, hd), ck)
+    logits = L.softcap(logits, acfg.attn_softcap).float()
+    logits = torch.where(causal[:, None, None], logits, L._MASKED)
+    m = logits.amax(-1, keepdim=True)  # (B, K, g, S, 1)
+    e = torch.exp(logits - m)
+    tdims = [i for i, p in enumerate(kv_cache[0].placements)
+             if p == Shard(1)]
+
+    def all_reduce(t, op):
+        pl = [Partial(op) if i in tdims else Replicate()
+              for i in range(mesh.ndim)]
+        return DTensor.from_local(t, mesh, pl, run_check=False).full_tensor()
+
+    m_all = all_reduce(m, "max")
+    w = torch.exp(m - m_all)
+    den = all_reduce(e.sum(-1, keepdim=True) * w, "sum")
+    num = all_reduce(torch.einsum("bkgst,btkh->bkgsh", e, cv.float()) * w,
+                     "sum")
+    out = (num / den).to(x.dtype).permute(0, 3, 1, 2, 4).reshape(
+        B, S, cfg.n_heads * hd)
+    r0, nr = _shard_range(lp["wo"], 0)
+    return out[..., r0:r0 + nr] @ lp["wo"].to_local()
+
+
+def _local(t):
+    """A DTensor's local shard for per-rank compute. Its gradient is
+    partial over every mesh dim it is replicated on (each rank's compute,
+    on its heads or its batch rows, adds its part); plain tensors pass."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    if not isinstance(t, DTensor):
+        return t
+    pl = [Partial() if p == Replicate() else p for p in t.placements]
+    return t.to_local(grad_placements=pl)
+
+
+def _embed(p: _Parts, tokens, policy: ShardingPolicy):
+    """``L.embed_tokens`` under a mesh, per rank: each rank looks up the
+    tokens of its batch rows that fall in its vocab shard (zeros for the
+    rest), a partial sum over the vocab's mesh dims, reduced to the
+    activation layout (the masked lookup GSPMD makes of a vocab-sharded
+    gather). Plain tensors take ``L.embed_tokens``."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    emb = p.head["embedding"]
+    if policy.mesh is None or not isinstance(emb, DTensor):
+        return L.embed_tokens(p.head, tokens, scale=p.cfg.scale_embeddings)
+    mesh = emb.device_mesh
+    tokens = policy.constrain(tokens, ("batch", None))
+    if any(q not in (Shard(0), Replicate()) for q in emb.placements) or \
+            any(q not in (Shard(0), Replicate()) for q in tokens.placements):
+        return L.embed_tokens(p.head, tokens, scale=p.cfg.scale_embeddings)
+    lo, rows = _shard_range(emb, 0)  # this rank's vocab rows
+    idx = tokens.to_local() - lo
+    hit = (idx >= 0) & (idx < rows)
+    out = F.embedding(torch.where(hit, idx, 0), _local(emb)) \
+        * hit[..., None].to(emb.dtype)
+    if p.cfg.scale_embeddings:
+        out = out * (emb.shape[-1] ** 0.5)
+    pl = [Partial() if e == Shard(0) else t
+          for e, t in zip(emb.placements, tokens.placements)]
+    shape = tuple(tokens.shape) + (emb.shape[-1],)
+    x = DTensor.from_local(out, mesh, pl, run_check=False, shape=shape,
+                           stride=torch.empty(shape, device="meta").stride())
+    return policy.constrain(x, ("batch", "seq", None))
+
+
+def _local_rows(t: torch.Tensor, x) -> torch.Tensor:
+    """This rank's rows of a plain (B, ...) tensor made for the whole
+    batch of the DTensor ``x`` (a broadcast (1, ...) one unchanged)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if t.shape[0] != x.shape[0] or Shard(0) not in x.placements:
+        return t
+    mesh = x.device_mesh
+    pl = [Shard(0) if p == Shard(0) else Replicate() for p in x.placements]
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False).redistribute(mesh, pl
+                                                            ).to_local()
+
+
+def _block_tp(cfg: TransformerConfig, window: int, lp: Params, x,
+              positions, kv_cache, cache_pos, policy: ShardingPolicy):
+    """``block``'s sublayers as Megatron-style tensor parallelism over
+    ``model``, the way the reference's GSPMD partitions them: returns the
+    attention output and the feed-forward callable for ``_residual``.
+    Each rank runs attention on its query heads (and the kv heads they
+    read) and the MLP on its slice of d_ff (the MoE on its experts) with
+    the plain code on its local shards; each sublayer's output is a
+    partial sum over ``model``, reduced by the constraint to the
+    activation layout. Norms and residuals stay DTensor ops. A rank whose
+    kv heads are replicated reads (and writes to its cache) only those
+    its query heads map to. The MoE's capacity is each batch shard's (its
+    routing sees the shard's tokens)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    md = _tp_layout(cfg, x, kv_cache)
+    mesh = x.device_mesh
+    m_sz, m_idx = mesh.size(md), mesh.get_local_rank(md)
+    act = ("batch", "seq", None)
+
+    def reduced(y_l):
+        pl = [Partial() if i == md else p for i, p in enumerate(x.placements)]
+        y = DTensor.from_local(y_l, mesh, pl, run_check=False,
+                               shape=x.shape, stride=x.stride())
+        return policy.constrain(y, act)
+
+    def ffn(hin):
+        if cfg.moe is None:
+            mp = tree_lib.tree_map(_local, lp["mlp"])
+            return reduced(L.gated_mlp(cfg.mlp, mp, _local(hin)))
+        # expert parallelism: the experts are sharded over ``ep`` (model,
+        # and pod where the rules say so); a rank's tokens are gathered
+        # over the other expert dims, so that each expert sees them all
+        wg = lp["moe"]["w_gate"]
+        ep = [i for i, q in enumerate(wg.placements) if q == Shard(0)]
+        e_idx, e_sz = 0, 1
+        for i in ep:
+            e_idx, e_sz = e_idx * mesh.size(i) + mesh.get_local_rank(i), \
+                e_sz * mesh.size(i)
+        if cfg.moe.n_experts % e_sz or (cfg.moe.n_shared and ep != [md]):
+            raise ValueError("expert parallelism needs the experts split "
+                             "evenly over their mesh dims (and, with "
+                             "shared experts, over model only)")
+        pl = [Replicate() if i in ep else q
+              for i, q in enumerate(hin.placements)]
+        hin = hin.redistribute(mesh, pl)
+        mp = tree_lib.tree_map(_local, lp["moe"])
+        e_loc = cfg.moe.n_experts // e_sz
+        y = L.moe_block(cfg.moe, mp, _local(hin), experts=(
+            e_idx * e_loc, (e_idx + 1) * e_loc))
+        out_pl = [Partial() if i in ep or i == md else q
+                  for i, q in enumerate(pl)]
+        y = DTensor.from_local(y, mesh, out_pl, run_check=False,
+                               shape=hin.shape, stride=hin.stride())
+        return policy.constrain(y, act)
+
+    h = L.rms_norm(x, lp["norm_attn"]["scale"])
+    if kv_cache is not None and any(p == Shard(1)
+                                    for p in kv_cache[0].placements):
+        return reduced(_attention_seq_sharded(
+            cfg, window, lp["attn"], h, positions, kv_cache, cache_pos)), ffn
+    # attention on this rank's heads
+    at = {k: _local(v) for k, v in lp["attn"].items()}
+    h_loc = at["wq"].shape[1]
+    g = cfg.n_heads // cfg.n_kv
+    kv = slice(None)
+    if at["wk"].shape[1] == cfg.n_kv and m_sz > 1:  # kv heads replicated
+        lo = m_idx * h_loc // g
+        kv = slice(lo, ((m_idx + 1) * h_loc - 1) // g + 1)
+        at["wk"], at["wv"] = at["wk"][:, kv], at["wv"][:, kv]
+    acfg = dataclasses.replace(cfg.attn, n_heads=h_loc,
+                               n_kv=at["wk"].shape[1])
+    pos = _local_rows(positions, x)
+    cache = None
+    if kv_cache is not None:
+        cache = tuple(c.to_local() for c in kv_cache)
+        if cache[0].shape[2] == cfg.n_kv:
+            cache = tuple(c[:, :, kv] for c in cache)
+    T = cache[0].shape[1] if cache is not None else x.shape[1]
+    a_l, _ = L.attention(acfg, at, _local(h), pos,
+                         mask=_window_mask(pos, T, window),
+                         kv_cache=cache, cache_pos=cache_pos)
+    return reduced(a_l), ffn
 
 
 class Transformer(nn.Module):
@@ -449,43 +806,83 @@ def _remat(cfg: TransformerConfig, fn, *args):
     return ckpt.checkpoint(fn, *args, use_reentrant=False, **kw)
 
 
-def _layer(cfg, window, lp, x, positions):
-    return block(cfg, window, lp, x, positions)[0]
+def _fsdp(tree: Params, policy: ShardingPolicy) -> Params:
+    """FSDP (ZeRO-3) under a mesh: ``tree``'s weights gathered over the
+    ``fsdp`` axes for their use (tensor-parallel shards kept); re-gathered
+    in a layer's recompute. ``tree`` itself without a mesh."""
+    if policy.mesh is None:
+        return tree
+    return tree_lib.tree_map(
+        lambda t: replicate_over(t, policy.rules.get("fsdp")), tree)
 
 
-def forward_hidden(model: Model, tokens: torch.Tensor) -> torch.Tensor:
+def _parts_for(model: Model, policy: ShardingPolicy) -> _Parts:
+    p = _parts(model)
+    if policy.mesh is None:
+        return p
+    return dataclasses.replace(p, head=_fsdp(p.head, policy))
+
+
+def _layer(cfg, window, lp, policy, x, positions):
+    return block(cfg, window, _fsdp(lp, policy), x, positions,
+                 policy=policy)[0]
+
+
+def forward_hidden(model: Model, tokens: torch.Tensor,
+                   policy: ShardingPolicy = NO_SHARDING) -> torch.Tensor:
     """Forward pass up to (but excluding) the LM head: (B, S, d)."""
-    return _hidden(_parts(model), tokens)
+    with scope(policy):
+        return _hidden(_parts_for(model, policy), tokens, policy)
 
 
-def _hidden(p: _Parts, tokens: torch.Tensor) -> torch.Tensor:
+def _hidden(p: _Parts, tokens: torch.Tensor,
+            policy: ShardingPolicy = NO_SHARDING) -> torch.Tensor:
     cfg = p.cfg
     B, S = tokens.shape
-    x = L.embed_tokens(p.head, tokens, scale=cfg.scale_embeddings)
+    x = policy.constrain(_embed(p, tokens, policy), ("batch", "seq", None))
     positions = torch.arange(S, device=tokens.device).expand(B, S)
     for window, lp in p.layers:
         # the layer's parameters are closed over, so a recompute in the
         # backward reads the same tensors
-        x = _remat(cfg, functools.partial(_layer, cfg, window, lp), x,
-                   positions)
+        x = _remat(cfg, functools.partial(_layer, cfg, window, lp, policy),
+                   x, positions)
     return L.rms_norm(x, p.final_scale)
 
 
-def forward(model: Model, tokens: torch.Tensor) -> torch.Tensor:
+def forward(model: Model, tokens: torch.Tensor,
+            policy: ShardingPolicy = NO_SHARDING) -> torch.Tensor:
     """tokens: (B, S) int -> logits (B, S, vocab)."""
-    p = _parts(model)
-    return L.lm_logits(p.head, _hidden(p, tokens), cap=p.cfg.final_softcap,
-                       tied=p.cfg.tie_embeddings)
+    with scope(policy):
+        p = _parts_for(model, policy)
+        logits = L.lm_logits(p.head, _hidden(p, tokens, policy),
+                             cap=p.cfg.final_softcap,
+                             tied=p.cfg.tie_embeddings)
+        # NB: seq stays unsharded here — "seq" and "vocab" both map to model
+        return policy.constrain(logits, ("batch", None, "vocab"))
 
 
-def _chunk_loss(hx, tx, w, cap):
+def _gold(logits: torch.Tensor, targets: torch.Tensor,
+          policy: ShardingPolicy) -> torch.Tensor:
+    """The target's logit. Under a mesh a select-and-sum over the (vocab-
+    sharded) last dim, exactly the gathered value for finite logits, where
+    DTensor's gather of a sharded dim cannot reduce its partial result."""
+    if policy.mesh is None:
+        return torch.gather(logits, -1, targets[..., None])[..., 0]
+    vocab = torch.arange(logits.shape[-1], device=targets.device)
+    return torch.where(vocab == targets[..., None], logits, 0.0).sum(-1)
+
+
+def _chunk_loss(hx, tx, w, cap, policy=NO_SHARDING):
+    # pins the chunk's gradient to the activation layout under a mesh
+    hx = policy.constrain(hx, ("batch", "seq", None))
     logits = L.softcap(torch.einsum("bsd,dv->bsv", hx, w), cap).float()
+    logits = policy.constrain(logits, ("batch", None, "vocab"))
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, tx[..., None])[..., 0]
-    return torch.sum(logz - gold)
+    return torch.sum(logz - _gold(logits, tx, policy))
 
 
-def loss_fn(model: Model, tokens: torch.Tensor, targets: torch.Tensor, *,
+def loss_fn(model: Model, tokens: torch.Tensor, targets: torch.Tensor,
+            policy: ShardingPolicy = NO_SHARDING, *,
             chunks: int = 1) -> torch.Tensor:
     """Next-token cross entropy, a mean over the (B, S) targets.
 
@@ -495,28 +892,37 @@ def loss_fn(model: Model, tokens: torch.Tensor, targets: torch.Tensor, *,
     recomputed. The chunk sums add in chunk order, as the reference's
     scan does.
     """
-    targets = targets.long()
-    if chunks <= 1:
-        logits = forward(model, tokens).float()
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, targets[..., None])[..., 0]
-        return torch.mean(logz - gold)
+    with scope(policy):
+        return _loss(model, tokens, targets.long(), policy, chunks)
 
-    p = _parts(model)
+
+def _loss(model: Model, tokens, targets, policy, chunks: int):
+    if chunks <= 1:
+        logits = forward(model, tokens, policy).float()
+        logz = torch.logsumexp(logits, dim=-1)
+        return torch.mean(logz - _gold(logits, targets, policy))
+
+    p = _parts_for(model, policy)
     cfg = p.cfg
-    h = _hidden(p, tokens)
+    h = _hidden(p, tokens, policy)
     B, S, D = h.shape
     assert S % chunks == 0, (S, chunks)
-    hc = h.reshape(B, chunks, S // chunks, D).transpose(0, 1)
-    tc = targets.reshape(B, chunks, S // chunks).transpose(0, 1)
+    c = S // chunks
+    if policy.mesh is None:
+        hc = h.reshape(B, chunks, c, D).transpose(0, 1)
+        tc = targets.reshape(B, chunks, c).transpose(0, 1)
+    else:  # sequence slices: DTensor cannot propagate the reshape's grad
+        hc = [h.narrow(1, i * c, c) for i in range(chunks)]
+        tc = [targets.narrow(1, i * c, c) for i in range(chunks)]
     w = p.head["embedding"].T if cfg.tie_embeddings else p.head["lm_head"]
     total = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(chunks):
         if torch.is_grad_enabled():
             part = ckpt.checkpoint(_chunk_loss, hc[i], tc[i], w,
-                                   cfg.final_softcap, use_reentrant=False)
+                                   cfg.final_softcap, policy,
+                                   use_reentrant=False)
         else:
-            part = _chunk_loss(hc[i], tc[i], w, cfg.final_softcap)
+            part = _chunk_loss(hc[i], tc[i], w, cfg.final_softcap, policy)
         total = total + part
     return total / (B * S)
 
@@ -526,47 +932,80 @@ def loss_fn(model: Model, tokens: torch.Tensor, targets: torch.Tensor, *,
 # ---------------------------------------------------------------------------
 
 
+def _cache_logical(cfg: TransformerConfig, batch: int,
+                   policy: ShardingPolicy):
+    """KV cache sharding: batch over DP when batch > 1; KV heads over
+    ``model`` when divisible, else the sequence dim; batch-1 long-context
+    cells spread the sequence over every axis (``kv_seq``)."""
+    if batch == 1:
+        return (None, None, "kv_seq", None, None)
+    if cfg.n_kv % max(policy.model_size, 1) == 0 and policy.model_size > 1:
+        return (None, "batch", None, "model", None)
+    return (None, "batch", "seq", None, None)
+
+
 def init_cache(cfg: TransformerConfig, batch: int, max_len: int,
-               dtype: torch.dtype = torch.float32, device="cuda"):
-    """(k, v), each (n_layers, batch, max_len, n_kv, hd) zeros."""
+               dtype: torch.dtype = torch.float32, device="cuda",
+               policy: ShardingPolicy = NO_SHARDING):
+    """(k, v), each (n_layers, batch, max_len, n_kv, hd) zeros, placed by
+    ``policy`` (its cache rule) when it has a mesh."""
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv, cfg.hd)
     dev = resolve_device(device)
-    return (torch.zeros(shape, dtype=dtype, device=dev),
-            torch.zeros(shape, dtype=dtype, device=dev))
+    logical = _cache_logical(cfg, batch, policy)
+    return tuple(policy.constrain(torch.zeros(shape, dtype=dtype,
+                                              device=dev), logical)
+                 for _ in range(2))
 
 
-def _layers_cached(model: Transformer, x, positions, cache, cache_pos: int):
+def cache_abstract(cfg: TransformerConfig, batch: int, max_len: int,
+                   policy: ShardingPolicy = NO_SHARDING,
+                   dtype: torch.dtype = torch.float32, device="cpu"):
+    """``init_cache``'s (k, v), uninitialized (``sharding.abstract``)."""
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv, cfg.hd)
+    sh = policy.named(_cache_logical(cfg, batch, policy))
+    return tuple(abstract(shape, dtype, sh, device) for _ in range(2))
+
+
+def _layers_cached(p: _Parts, x, positions, cache, cache_pos: int,
+                   policy: ShardingPolicy):
     ck, cv = cache
-    for l, block in enumerate(model.layers):
-        x, _ = block(x, positions, kv_cache=(ck[l], cv[l]),
-                     cache_pos=cache_pos)
+    for l, (window, lp) in enumerate(p.layers):
+        x, _ = block(p.cfg, window, _fsdp(lp, policy), x, positions,
+                     kv_cache=(ck[l], cv[l]), cache_pos=cache_pos,
+                     policy=policy)
     return x, (ck, cv)
 
 
-def prefill(model: Transformer, tokens: torch.Tensor, cache):
+def prefill(model: Model, tokens: torch.Tensor, cache,
+            policy: ShardingPolicy = NO_SHARDING):
     """Fill the cache with a prompt; returns (logits_last, cache)."""
-    cfg = model.cfg
     B, S = tokens.shape
-    x = L.embed_tokens(model.head(), tokens, scale=cfg.scale_embeddings)
-    positions = torch.arange(S, device=tokens.device).expand(B, S)
-    x, cache = _layers_cached(model, x, positions, cache, 0)
-    x = L.rms_norm(x, model.final_norm.scale)
-    logits = L.lm_logits(model.head(), x[:, -1:], cap=cfg.final_softcap,
-                         tied=cfg.tie_embeddings)
+    with scope(policy):
+        p = _parts_for(model, policy)
+        cfg = p.cfg
+        x = _embed(p, tokens, policy)
+        positions = torch.arange(S, device=tokens.device).expand(B, S)
+        x, cache = _layers_cached(p, x, positions, cache, 0, policy)
+        x = L.rms_norm(x, p.final_scale)
+        logits = L.lm_logits(p.head, x[:, -1:], cap=cfg.final_softcap,
+                             tied=cfg.tie_embeddings)
     return logits, cache
 
 
-def decode_step(model: Transformer, token: torch.Tensor, pos: int, cache):
+def decode_step(model: Model, token: torch.Tensor, pos: int, cache,
+                policy: ShardingPolicy = NO_SHARDING):
     """One decode step. token: (B, 1) int; pos: the cache fill, the same
     for every row. Returns (logits (B, 1, V), cache)."""
-    cfg = model.cfg
     B = token.shape[0]
     pos = int(pos)
-    x = L.embed_tokens(model.head(), token, scale=cfg.scale_embeddings)
-    positions = torch.full((B, 1), pos, dtype=torch.long,
-                           device=token.device)
-    x, cache = _layers_cached(model, x, positions, cache, pos)
-    x = L.rms_norm(x, model.final_norm.scale)
-    logits = L.lm_logits(model.head(), x, cap=cfg.final_softcap,
-                         tied=cfg.tie_embeddings)
+    with scope(policy):
+        p = _parts_for(model, policy)
+        cfg = p.cfg
+        x = _embed(p, token, policy)
+        positions = torch.full((B, 1), pos, dtype=torch.long,
+                               device=token.device)
+        x, cache = _layers_cached(p, x, positions, cache, pos, policy)
+        x = L.rms_norm(x, p.final_scale)
+        logits = L.lm_logits(p.head, x, cap=cfg.final_softcap,
+                             tied=cfg.tie_embeddings)
     return logits, cache

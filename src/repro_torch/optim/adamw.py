@@ -13,11 +13,11 @@ donated state (``donate=(0, 1)``): a functional update would hold the
 old and the new parameters and moments together. The arithmetic is the
 reference's, in its order of operations.
 
-The reference's ``abstract_state`` and ``_shard_like`` (shape and
-sharding stand-ins for its dry-run on a mesh) have no counterpart until
-the port shards the LM (slice 7d). Nor has ``_is_q8``: the update walks
-the parameters' paths, so an int8 moment's ``{"q", "s"}`` dict needs no
-leaf predicate.
+``abstract_state`` gives the state of abstract parameters
+(``sharding.abstract``: fake or meta, DTensors under a mesh), each moment
+placed as its parameter (``_shard_like``). ``_is_q8`` has no
+counterpart: the update walks the parameters' paths, so an int8
+moment's ``{"q", "s"}`` dict needs no leaf predicate.
 """
 from __future__ import annotations
 
@@ -70,23 +70,73 @@ def _dq8(t: dict) -> torch.Tensor:
     return t["q"].float() * t["s"]
 
 
+def _zeros(p: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Contiguous zeros of ``p``'s shape on its device (a DTensor's: a
+    DTensor placed as ``p``)."""
+    return torch.zeros_like(p, dtype=dtype,
+                            memory_format=torch.contiguous_format)
+
+
 def init_state(params, moment_dtype: str = "f32") -> dict:
-    """Zero moments and step 0, on the parameters' device."""
+    """Zero moments and step 0, on the parameters' device (placed as the
+    parameters when they are DTensors)."""
     dev = tree_lib.leaves(params)[0][1].device
     if moment_dtype == "int8":
-        m = tree_lib.tree_map(
-            lambda p: _q8(torch.zeros(p.shape, dtype=torch.float32,
-                                      device=p.device)), params)
-        v = tree_lib.tree_map(
-            lambda p: torch.zeros(p.shape, dtype=torch.bfloat16,
-                                  device=p.device), params)
+        m = tree_lib.tree_map(lambda p: _q8(_zeros(p, torch.float32)),
+                              params)
+        v = tree_lib.tree_map(lambda p: _zeros(p, torch.bfloat16), params)
     else:
-        zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32,  # noqa
-                                      device=p.device)
-        m = tree_lib.tree_map(zeros, params)
-        v = tree_lib.tree_map(zeros, params)
+        m = tree_lib.tree_map(lambda p: _zeros(p, torch.float32), params)
+        v = tree_lib.tree_map(lambda p: _zeros(p, torch.float32), params)
     return {"m": m, "v": v,
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
+
+
+def _shard_like(p: torch.Tensor, shape, dtype: torch.dtype,
+                like: bool = True) -> torch.Tensor:
+    """An uninitialized tensor of ``shape`` on ``p``'s device: a DTensor
+    ``p``'s is placed as ``p`` (``like``, the ranks matching) or
+    replicated on its mesh."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from repro_torch.sharding.rules import Sharding, abstract
+
+    if not isinstance(p, DTensor):
+        return torch.empty(shape, dtype=dtype, device=p.device)
+    mesh = p.device_mesh
+    pl = (tuple(p.placements) if like and len(shape) == p.ndim
+          else (Replicate(),) * mesh.ndim)
+    return abstract(shape, dtype, Sharding(mesh, pl),
+                    p.to_local().device)
+
+
+def abstract_state(abstract_params, moment_dtype: str = "f32") -> dict:
+    """``init_state``'s layout for abstract parameters, uninitialized:
+    each moment placed as its parameter, an int8 moment's scales
+    replicated (as the reference's), ``step`` a plain scalar."""
+    if moment_dtype == "int8":
+        def mk8(p):
+            sshape = (p.shape[0],) + (1,) * (len(p.shape) - 1) if p.shape \
+                else ()
+            return {"q": _shard_like(p, p.shape, torch.int8),
+                    "s": _shard_like(p, sshape, torch.float32, like=False)}
+
+        m = tree_lib.tree_map(mk8, abstract_params)
+        v = tree_lib.tree_map(
+            lambda p: _shard_like(p, p.shape, torch.bfloat16),
+            abstract_params)
+    else:
+        m = tree_lib.tree_map(
+            lambda p: _shard_like(p, p.shape, torch.float32),
+            abstract_params)
+        v = tree_lib.tree_map(
+            lambda p: _shard_like(p, p.shape, torch.float32),
+            abstract_params)
+    first = tree_lib.leaves(abstract_params)[0][1]
+    dev = first.to_local().device if hasattr(first, "to_local") \
+        else first.device
+    return {"m": m, "v": v,
+            "step": torch.empty((), dtype=torch.int32, device=dev)}
 
 
 def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:

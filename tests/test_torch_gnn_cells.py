@@ -68,7 +68,7 @@ def test_cells_and_registry_match_reference():
                          (base.RECSYS_SMOKE_CELLS, jbase.RECSYS_SMOKE_CELLS)):
         assert {k: v.__dict__ for k, v in ours.items()} == \
             {k: v.__dict__ for k, v in theirs.items()}
-    assert len(all_cells()) == 40
+    assert len(all_cells()) == 42  # with mfbc_paper's two (slice 7d)
     assert set(CELLS) <= set(all_cells())
     for a in GNN_IDS + ("xdeepfm",):
         for smoke in (False, True):

@@ -88,6 +88,11 @@ _MODULES = {
     # slice 7c: the GNN and recsys families
     "repro_torch.models.gnn", "repro_torch.models.recsys",
     "repro_torch.models.gnn_dist", "repro_torch.configs.gnn_archs",
+    # slice 7d: the sharding rules, the dry run and the roofline
+    "repro_torch.sharding", "repro_torch.sharding.rules",
+    "repro_torch.launch.dryrun", "repro_torch.launch.perf_hillclimb",
+    "repro_torch.roofline", "repro_torch.roofline.constants",
+    "repro_torch.roofline.collectives", "repro_torch.roofline.analysis",
 }
 
 _BANNED = re.compile(r"^\s*(?:import|from)\s+(?:jax|repro)\b", re.MULTILINE)

@@ -318,8 +318,8 @@ def test_full_configs_match_assignment():
 
 def test_registry_and_cells_match_reference():
     assert set(LM_IDS) == {a for a, s in JARCHS.items() if s.family == "lm"}
-    # every family but BC (slice 7d), in the reference's order
-    assert list(ARCHS) == [a for a, s in JARCHS.items() if s.family != "bc"]
+    # every family, BC too (slice 7d), in the reference's order
+    assert list(ARCHS) == list(JARCHS)
     assert all_cells() == [(a, s) for a in ARCHS for s in ARCHS[a].cells()]
     for ours, theirs in ((base.LM_CELLS, jbase.LM_CELLS),
                          (base.LM_SMOKE_CELLS, jbase.LM_SMOKE_CELLS)):
@@ -368,9 +368,15 @@ def test_smoke_cell_concrete_args_run():
 
 
 def test_unported_names_raise_with_their_slice():
-    assert "mfbc_paper" in JARCHS
-    with pytest.raises(NotImplementedError, match="slice 7d"):
-        get_arch("mfbc_paper")
+    """Nothing is left unported (slice 7d was the last): ``mfbc_paper``
+    builds, its smoke cell runs; unknown ids raise."""
+    from repro_torch.configs.registry import UNPORTED
+
+    assert UNPORTED == {}
+    spec = get_arch("mfbc_paper")
+    assert spec.family == JARCHS["mfbc_paper"].family == "bc"
+    b = spec.build(spec.cells()["bc_dense_64k"], smoke=True)
+    b.check(b.fn(*b.concrete_args(None, "cpu")))
     # slice 7c's ids resolve, to their reference's family
     for arch in ("gcn-cora", "gin-tu", "nequip", "gat-cora", "xdeepfm"):
         assert get_arch(arch).family == JARCHS[arch].family
