@@ -1067,7 +1067,7 @@ def phase6d(launches, scale: int):
         f"{phase}, peak device memory {peak / 2**30:.2f} GiB")
     log(f"6d: occupancy: hit rate {occ['hit_rate']:.4f}, overflows "
         f"{occ['overflows']}, relax calls {occ['relax_calls']}, batches "
-        f"{occ['batches']}, iters bf/br {occ['iters_bf']}/{occ['iters_br']}")
+        f"{occ['batches']}")
     if (res.plan.backend, res.plan.n_b) != (pl.backend, pl.n_b):
         raise AssertionError("6d: solve ran another plan than the planner's")
     if a.lam.shape != (g.n,) or not (np.all(np.isfinite(a.lam))
@@ -1878,7 +1878,7 @@ def serve_rank(mesh, g) -> dict:
             out = serve_http(svc)
         finally:
             svc.close()
-        out.update(mirrored=svc.mirrored, mirror_s=svc.mirror_seconds)
+        out.update(mirrored=svc.mirrored)
     else:
         out = dict(followed=svc.follow())
     out.update(seconds=time.perf_counter() - t0, launches=_counts())
@@ -2099,17 +2099,15 @@ def phase9b(g12, lam12, launches, backend: str = "gloo") -> dict:
                                  f"rank 0 mirrored {out['mirrored']}")
     for doc in out["docs"]:
         log(served("9b serve on 2x2", doc))
-    mirror_ms = 1e3 * out["mirror_s"] / max(out["mirrored"], 1)
     log(f"9b: served on the 2x2 mesh ({where}; "
         f"rank 0 behind the HTTP gateway, ranks 1-3 following) in "
         f"{out['seconds']:.3f}s: the fused pair, the cache hit "
         f"({out['hit_ms']:.2f} ms, byte-identical) and the refine 0.1 -> "
-        f"0.07; {out['mirrored']} executor calls mirrored, the control "
-        f"broadcast {mirror_ms:.3f} ms a call on rank 0; launches {summed}; "
-        f"== the single-host dense service (samples, epochs, converged; λ̂, "
-        f"halfwidths rtol 1e-5)")
+        f"0.07; {out['mirrored']} executor calls mirrored; launches "
+        f"{summed}; == the single-host dense service (samples, epochs, "
+        f"converged; λ̂, halfwidths rtol 1e-5)")
     report["serve"] = dict(seconds=out["seconds"], mirrored=out["mirrored"],
-                           mirror_ms=mirror_ms, hit_ms=out["hit_ms"],
+                           hit_ms=out["hit_ms"],
                            latency_s=[d["latency_s"] for d in out["docs"]])
     return report
 

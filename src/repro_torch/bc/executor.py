@@ -42,7 +42,7 @@ from typing import Any, Callable, ContextManager, Dict, Optional, \
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, tracing
 from repro_torch.bc.config import Backend, as_backend
 from repro_torch.bc.planner import BCPlan, bucket_sizes
 from repro_torch.core.adjacency import (CsrAdj, coo_adj_from_graph,
@@ -300,6 +300,7 @@ class _ExecutorBase:
 
 
 def _host(s1, s2, nr) -> Moments:
+    tracing.count("host_syncs", 3)
     return (s1.cpu().numpy().astype(np.float64),
             s2.cpu().numpy().astype(np.float64), nr.cpu().numpy())
 
@@ -315,7 +316,9 @@ class SingleHostExecutor(_ExecutorBase):
     traced moments entry point and accumulates the frontier occupancy side
     channel (``occupancy_summary``); other metrics run untraced, as in the
     reference. ``labels()`` builds a second adjacency, of the zero-weight
-    symmetrized graph, on its first call.
+    symmetrized graph, on its first call. Each betweenness call is a
+    ``batch`` span of ``repro_torch.tracing``, and each copy of a result to
+    the host counts one ``host_syncs``.
     """
 
     def __init__(self, g: Graph, plan: BCPlan, *, device="cuda"):
@@ -336,14 +339,8 @@ class SingleHostExecutor(_ExecutorBase):
         return torch.from_numpy(x).to(self.device)
 
     def _record_occupancy(self, tr_bf, tr_br) -> None:
-        per_bf = list(tr_bf.fnnz[:min(tr_bf.iters, len(tr_bf.fnnz))])
-        per_br = list(tr_br.fnnz[:min(tr_br.iters, len(tr_br.fnnz))])
         o = self._occ
         o["batches"] = o.get("batches", 0) + 1
-        o["iters_bf"], o["iters_br"] = tr_bf.iters, tr_br.iters
-        o["per_iter_bf"], o["per_iter_br"] = per_bf, per_br
-        o["fnnz_first"] = per_bf[0] if per_bf else 0
-        o["fnnz_last"] = per_bf[-1] if per_bf else 0
         o["overflows"] = (o.get("overflows", 0) + tr_bf.overflows
                           + tr_br.overflows)
         o["compact_hits"] = (o.get("compact_hits", 0) + tr_bf.compact_hits
@@ -353,12 +350,9 @@ class SingleHostExecutor(_ExecutorBase):
         o["hit_rate"] = o["compact_hits"] / max(o["relax_calls"], 1)
 
     def occupancy_summary(self):
-        """Accumulated frontier-occupancy trace, or None when not traced.
-
-        Per-iteration profiles (``per_iter_bf``/``per_iter_br``, forward
-        and backward sweep frontier nnz) are from the most recent batch;
-        ``overflows``/``compact_hits``/``relax_calls``/``hit_rate``
-        accumulate over every traced batch this executor ran.
+        """Accumulated frontier-occupancy trace, or None when not traced:
+        ``batches``, ``overflows``, ``compact_hits``, ``relax_calls`` and
+        ``hit_rate`` over every traced batch this executor ran.
         """
         return dict(self._occ) if self._occ else None
 
@@ -368,25 +362,37 @@ class SingleHostExecutor(_ExecutorBase):
         self._record_occupancy(tr_bf, tr_br)
         return s1, s2, nr
 
+    def _batch(self, src):
+        """The ``batch`` span of one call: uploads, body, fold and the
+        copies to the host."""
+        return tracing.span("batch", self.device, rows=src.shape[0],
+                            n=self._adj.n)
+
     def _moments(self, src, val) -> Moments:
-        if self._trace:
-            return _host(*self._traced(src, val))
-        return _host(*mfbc_batch_moments(self._adj, self._put(src),
-                                         self._put(val)))
+        with self._batch(src):
+            if self._trace:
+                return _host(*self._traced(src, val))
+            return _host(*mfbc_batch_moments(self._adj, self._put(src),
+                                             self._put(val)))
 
     def _sum(self, src, val) -> np.ndarray:
-        if self._trace:
-            # S1 of the moments IS λ_partial: the exact sweep rides the
-            # traced path at the cost of one discarded elementwise square.
-            lam_b = self._traced(src, val)[0]
-        else:
-            lam_b, _, _ = mfbc_batch(self._adj, self._put(src),
-                                     self._put(val))
-        return lam_b.cpu().numpy().astype(np.float64)
+        with self._batch(src):
+            if self._trace:
+                # S1 of the moments IS λ_partial: the exact sweep rides the
+                # traced path at the cost of one discarded elementwise
+                # square.
+                lam_b = self._traced(src, val)[0]
+            else:
+                lam_b, _, _ = mfbc_batch(self._adj, self._put(src),
+                                         self._put(val))
+            tracing.count("host_syncs")
+            return lam_b.cpu().numpy().astype(np.float64)
 
     def _segmented(self, src, val, sid, n_seg: int) -> Moments:
-        return _host(*mfbc_batch_moments_segmented(
-            self._adj, self._put(src), self._put(val), sid, n_slots=n_seg))
+        with self._batch(src):
+            return _host(*mfbc_batch_moments_segmented(
+                self._adj, self._put(src), self._put(val), sid,
+                n_slots=n_seg))
 
     def _metric_moments(self, src, val, metric: str, hops: int) -> Moments:
         mids = torch.zeros(src.shape[0], dtype=torch.int32,

@@ -25,7 +25,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, tracing
 from repro_torch.core import monoids
 from repro_torch.core.monoids import INF, Centpath, Multpath, Runs
 from repro_torch.graphs.formats import Graph, coo_to_dense, pad_edges
@@ -204,6 +204,22 @@ class CsrAdj:
                 return i
         return len(self.caps)
 
+    @staticmethod
+    def _read_counts(counts: torch.Tensor) -> list:
+        tracing.count("host_syncs")
+        return counts.tolist()
+
+    def _span(self, F, nnz: int, arcs: int, bucket: int, outputs: int):
+        """The ``csr.relax`` span of one relax: its live arcs and the
+        frontier columns it reads, the whole arc list and every column on
+        the fallback."""
+        fallback = bucket == len(self.caps)
+        return tracing.span(
+            "csr.relax", F.w.device, rows=F.w.shape[0], n=self.n,
+            live_arcs=self.src.shape[0] if fallback else int(arcs),
+            cols=self.n if fallback else int(nnz), outputs=outputs,
+            bucket=bucket)
+
     def frontier_counts_mp(self, F: Multpath) -> torch.Tensor:
         return _frontier_counts(torch.isfinite(F.w), self.indptr)
 
@@ -215,29 +231,32 @@ class CsrAdj:
         """``counts``: ``frontier_counts_mp(F)`` already read to the host;
         read here (one sync) when omitted."""
         nnz, arcs = (counts if counts is not None
-                     else self.frontier_counts_mp(F).tolist())
+                     else self._read_counts(self.frontier_counts_mp(F)))
         bucket = self._pick_bucket(nnz, arcs)
-        if bucket < len(self.caps):
-            vcap, ecap = self.caps[bucket]
-            out = monoids.multpath_relax_csr(F, self.indptr, self.dst, self.w,
-                                             self.n, vcap=vcap, ecap=ecap)
-        else:
-            out = self.coo.relax_mp(F)
+        with self._span(F, nnz, arcs, bucket, outputs=2):
+            if bucket < len(self.caps):
+                vcap, ecap = self.caps[bucket]
+                out = monoids.multpath_relax_csr(F, self.indptr, self.dst,
+                                                 self.w, self.n, vcap=vcap,
+                                                 ecap=ecap)
+            else:
+                out = self.coo.relax_mp(F)
         overflow = int(bucket == len(self.caps))
         return out, RelaxStats(int(nnz), int(arcs), bucket, overflow)
 
     def relax_cp_stats(self, F: Centpath, counts: Optional[Sequence[int]]
                        = None) -> Tuple[Centpath, RelaxStats]:
         nnz, arcs = (counts if counts is not None
-                     else self.frontier_counts_cp(F).tolist())
+                     else self._read_counts(self.frontier_counts_cp(F)))
         bucket = self._pick_bucket(nnz, arcs)
-        if bucket < len(self.caps):
-            vcap, ecap = self.caps[bucket]
-            out = monoids.centpath_relax_csr(F, self.indptr_in, self.src_in,
-                                             self.w_in, self.n, vcap=vcap,
-                                             ecap=ecap)
-        else:
-            out = self.coo.relax_cp(F)
+        with self._span(F, nnz, arcs, bucket, outputs=3):
+            if bucket < len(self.caps):
+                vcap, ecap = self.caps[bucket]
+                out = monoids.centpath_relax_csr(F, self.indptr_in,
+                                                 self.src_in, self.w_in,
+                                                 self.n, vcap=vcap, ecap=ecap)
+            else:
+                out = self.coo.relax_cp(F)
         overflow = int(bucket == len(self.caps))
         return out, RelaxStats(int(nnz), int(arcs), bucket, overflow)
 

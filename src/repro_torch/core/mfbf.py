@@ -27,6 +27,8 @@ relax then reads its counts itself).
 Python ints: per-iteration frontier nnz plus, for a compacting adjacency,
 how many relax calls a capacity bucket served and how many overflowed to
 the full edge list. It always runs the while loop, as the reference does.
+
+The sweep is an ``mfbf`` span of ``repro_torch.tracing``.
 """
 from __future__ import annotations
 
@@ -34,6 +36,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.core.monoids import INF, Multpath, multpath_combine
 
 # Fixed-size per-iteration occupancy trace; iterations past the cap fold
@@ -70,7 +73,9 @@ def read_counts(count: torch.Tensor, F, probe) -> Tuple[int, Optional[tuple]]:
     """The sweep's one device-to-host read per iteration: the frontier's
     population and, where the adjacency compacts (``probe`` is its
     ``frontier_counts_*``), the counts its next relax picks a bucket from.
+    Each call counts one ``host_syncs`` (``repro_torch.tracing``).
     """
+    tracing.count("host_syncs")
     if probe is None:
         return int(count.item()), None
     vals = torch.cat([count.reshape(1).to(torch.int64), probe(F)]).tolist()
@@ -116,23 +121,24 @@ def mfbf(adj, sources: torch.Tensor, *, iterate: str = "while",
     """
     if iterate not in ("while", "fori"):
         raise ValueError(f"iterate must be 'while' or 'fori', got {iterate!r}")
-    bound = max_iters if max_iters > 0 else adj.n - 1
-    Tw0 = adj.gather_rows(sources)  # direct edges, (nb, n); paper line 1
-    T = Multpath(Tw0, torch.isfinite(Tw0).to(Tw0.dtype))
-    F = T  # paper line 2: initial frontier = exactly-1-edge paths
+    with tracing.span("mfbf", sources.device):
+        bound = max_iters if max_iters > 0 else adj.n - 1
+        Tw0 = adj.gather_rows(sources)  # direct edges (nb, n); paper line 1
+        T = Multpath(Tw0, torch.isfinite(Tw0).to(Tw0.dtype))
+        F = T  # paper line 2: initial frontier = exactly-1-edge paths
 
-    if iterate == "fori" and not trace:
-        for _ in range(bound):
-            T, F, _, _ = _step(adj, T, F, None)
-        return T.w, T.m
-    probe = getattr(adj, "frontier_counts_mp", None)
-    tr = empty_trace()
-    nact, hint = read_counts(_frontier_active(F).sum(), F, probe)
-    it = 0
-    while nact > 0 and it < bound:
-        T, F, count, stats = _step(adj, T, F, hint)
-        if trace:
-            tr = record(tr, it, nact, stats)
-        nact, hint = read_counts(count, F, probe)
-        it += 1
-    return (T.w, T.m, tr) if trace else (T.w, T.m)
+        if iterate == "fori" and not trace:
+            for _ in range(bound):
+                T, F, _, _ = _step(adj, T, F, None)
+            return T.w, T.m
+        probe = getattr(adj, "frontier_counts_mp", None)
+        tr = empty_trace()
+        nact, hint = read_counts(_frontier_active(F).sum(), F, probe)
+        it = 0
+        while nact > 0 and it < bound:
+            T, F, count, stats = _step(adj, T, F, hint)
+            if trace:
+                tr = record(tr, it, nact, stats)
+            nact, hint = read_counts(count, F, probe)
+            it += 1
+        return (T.w, T.m, tr) if trace else (T.w, T.m)

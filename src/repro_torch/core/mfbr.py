@@ -23,11 +23,15 @@ As in ``mfbf``, ``iterate="while"`` reads one count per round from the
 device: the population of the next frontier, taken from the ``newly`` mask
 (with a ``CsrAdj``, in the same copy, the counts of its next bucket pick).
 ``trace=True`` also returns the sweep's ``SweepTrace``.
+
+The back-propagation is an ``mfbr`` span of ``repro_torch.tracing``, and
+the child count its first child span, ``child_count``.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.core.mfbf import empty_trace, read_counts, record
 from repro_torch.core.monoids import INF, Centpath
 
@@ -62,26 +66,29 @@ def mfbr(adj, Tw: torch.Tensor, Tm: torch.Tensor, *, iterate: str = "while",
     With ``trace=True``: (Zp, SweepTrace) — see ``repro_torch.core.mfbf``."""
     if iterate not in ("while", "fori"):
         raise ValueError(f"iterate must be 'while' or 'fori', got {iterate!r}")
-    bound = max_iters if max_iters > 0 else adj.n - 1
-    finite = torch.isfinite(Tw)
-    Tm_safe = torch.where(Tm > 0, Tm, 1.0)  # the paper's (∞, 1) reciprocal guard
-    c0 = adj.count_sp_children(Tw)
-    Zp0 = torch.zeros_like(Tw)
-    seed = finite & (c0 == 0)
-    state = (Zp0, c0, seed, _seed_frontier(Tw, Tm_safe, Zp0, seed))
+    with tracing.span("mfbr", Tw.device):
+        bound = max_iters if max_iters > 0 else adj.n - 1
+        finite = torch.isfinite(Tw)
+        # the paper's (∞, 1) reciprocal guard
+        Tm_safe = torch.where(Tm > 0, Tm, 1.0)
+        with tracing.span("child_count", Tw.device):
+            c0 = adj.count_sp_children(Tw)
+        Zp0 = torch.zeros_like(Tw)
+        seed = finite & (c0 == 0)
+        state = (Zp0, c0, seed, _seed_frontier(Tw, Tm_safe, Zp0, seed))
 
-    if iterate == "fori" and not trace:
-        for _ in range(bound):
-            state, _, _ = _step(adj, Tw, Tm_safe, finite, state, None)
-        return state[0]
-    probe = getattr(adj, "frontier_counts_cp", None)
-    tr = empty_trace()
-    nact, hint = read_counts(seed.sum(), state[3], probe)
-    it = 0
-    while nact > 0 and it < bound:
-        state, count, stats = _step(adj, Tw, Tm_safe, finite, state, hint)
-        if trace:
-            tr = record(tr, it, nact, stats)
-        nact, hint = read_counts(count, state[3], probe)
-        it += 1
-    return (state[0], tr) if trace else state[0]
+        if iterate == "fori" and not trace:
+            for _ in range(bound):
+                state, _, _ = _step(adj, Tw, Tm_safe, finite, state, None)
+            return state[0]
+        probe = getattr(adj, "frontier_counts_cp", None)
+        tr = empty_trace()
+        nact, hint = read_counts(seed.sum(), state[3], probe)
+        it = 0
+        while nact > 0 and it < bound:
+            state, count, stats = _step(adj, Tw, Tm_safe, finite, state, hint)
+            if trace:
+                tr = record(tr, it, nact, stats)
+            nact, hint = read_counts(count, state[3], probe)
+            it += 1
+        return (state[0], tr) if trace else state[0]

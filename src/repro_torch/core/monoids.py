@@ -48,6 +48,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.kernels.segment_relax import (centpath_segment_relax,
                                                multpath_segment_relax)
 
@@ -315,14 +316,16 @@ def csr_runs(Fw: torch.Tensor, indptr: torch.Tensor, seg: torch.Tensor,
     The columns active in any row of ``Fw`` compact into ``vcap`` slots,
     their ``indptr`` arc ranges expand into ``ecap`` arc slots, and each
     arc reads its slot's column. Dead slots and padding arcs (w = inf,
-    which never reach a tie) go to segment n, past ``offsets[n]``.
+    which never reach a tie) go to segment n, past ``offsets[n]``. A
+    ``csr.runs`` span of ``repro_torch.tracing``.
     """
-    u, offs = _compact_cols(torch.isfinite(Fw), indptr, vcap)
-    j, eid, live = _expand_edges(u, offs, indptr, ecap)
-    wa = w[eid]
-    alive = live & torch.isfinite(wa)
-    return arc_runs(torch.where(alive, seg[eid], n), u[j],
-                    torch.where(alive, wa, INF), n)
+    with tracing.span("csr.runs", Fw.device):
+        u, offs = _compact_cols(torch.isfinite(Fw), indptr, vcap)
+        j, eid, live = _expand_edges(u, offs, indptr, ecap)
+        wa = w[eid]
+        alive = live & torch.isfinite(wa)
+        return arc_runs(torch.where(alive, seg[eid], n), u[j],
+                        torch.where(alive, wa, INF), n)
 
 
 def multpath_relax_csr(F: Multpath, indptr: torch.Tensor, dst: torch.Tensor,

@@ -325,8 +325,8 @@ class BCService:
         self._n_devices = 1 if mesh is None else None
         # Mesh serving: the control group rank 0 mirrors its executors'
         # calls on (host objects, whatever the mesh's data backend), the
-        # graphs already announced to the followers, rank 0's count and
-        # seconds of mirrored calls, and its keep-alive thread, which
+        # graphs already announced to the followers, rank 0's count of
+        # mirrored calls, and its keep-alive thread, which
         # sends while nothing else has been sent for a quarter of the
         # group's timeout.
         self._ctrl = None
@@ -337,7 +337,6 @@ class BCService:
         self._stop_beats = threading.Event()
         self._beats: Optional[threading.Thread] = None
         self.mirrored = 0
-        self.mirror_seconds = 0.0
         if mesh is not None:
             timeout = (dist.default_pg_timeout if ctrl_timeout is None
                        else ctrl_timeout)
@@ -459,10 +458,8 @@ class BCService:
             if self._closed:
                 raise RuntimeError("this mesh service is closed: its "
                                    "followers have returned")
-            t0 = time.perf_counter()
             dist.broadcast_object_list([(name, hook, args, plan)], src=0,
                                        group=self._ctrl)
-            self.mirror_seconds += time.perf_counter() - t0
             self.mirrored += 1
             self._announced.add(name)
             try:

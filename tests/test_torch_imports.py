@@ -93,6 +93,8 @@ _MODULES = {
     "repro_torch.launch.dryrun", "repro_torch.launch.perf_hillclimb",
     "repro_torch.roofline", "repro_torch.roofline.constants",
     "repro_torch.roofline.collectives", "repro_torch.roofline.analysis",
+    # the program's spans and counters
+    "repro_torch.tracing",
 }
 
 _BANNED = re.compile(r"^\s*(?:import|from)\s+(?:jax|repro)\b", re.MULTILINE)

@@ -1,0 +1,204 @@
+"""The port's spans and counters (``repro_torch.tracing``).
+
+* With no profiler running, ``span`` is one shared no-op and nothing is
+  recorded.
+* Under ``torch.profiler``, an exact sweep on the CSR and the dense
+  executors records the span tree ``batch ⊃ {mfbf ⊃ csr.relax ⊃
+  csr.runs, mfbr ⊃ {child_count, csr.relax ⊃ csr.runs}}`` (on the dense
+  adjacency ``batch ⊃ {mfbf, mfbr ⊃ child_count}``); each ``csr.relax``
+  carries its relax's live arcs (the whole arc list on the fallback);
+  ``host_syncs`` counts relax calls + 3 a batch; each span's host start
+  lies within 1 ms of its ``repro_torch.<name>`` range in the profiler's
+  events; λ is bitwise λ untraced.
+* A new profile drops the spans and counts of the last one, and only
+  then: a reader of a finished profile reads that profile's alone.
+
+The benchmark's readers of these spans are tested beside the benchmark,
+in ``portbench/tests/test_portbench_tracing.py``.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile, record_function
+
+from repro_torch import tracing
+from repro_torch.bc import BCQuery, ExecutionConfig, build_executor, plan, \
+    solve
+from repro_torch.core.adjacency import CsrAdj
+from repro_torch.graphs.generators import rmat
+
+NB = 16
+_GRAPH = {}
+
+
+def _graph():
+    if not _GRAPH:
+        _GRAPH["g"] = rmat(6, 8, seed=5, weighted=True,
+                           max_weight=3).remove_isolated()[0]
+    return _GRAPH["g"]
+
+
+class _Relaxes:
+    """Wraps an executor's adjacency so that each relax call is seen: the
+    ``RelaxStats`` of a ``CsrAdj``, a count on the dense one."""
+
+    def __init__(self, adj):
+        self.stats, self.calls = [], 0
+        self.csr = isinstance(adj, CsrAdj)
+        names = (("relax_mp_stats", "relax_cp_stats") if self.csr
+                 else ("relax_mp", "relax_cp"))
+        for name in names:
+            setattr(adj, name, self._wrap(getattr(adj, name)))
+
+    def _wrap(self, fn):
+        def relax(*args):
+            out = fn(*args)
+            self.calls += 1
+            if self.csr:
+                self.stats.append(out[1])
+            return out
+        return relax
+
+
+def _executor(backend, caps=None):
+    g = _graph()
+    q = BCQuery(mode="exact", n_b=NB,
+                execution=ExecutionConfig(backend=backend))
+    ex = build_executor(g, plan(g, q, n_devices=1, device="cpu"),
+                        device="cpu")
+    if caps is not None:
+        ex._adj = dataclasses.replace(ex._adj, caps=caps)
+    return g, q, ex
+
+
+def _batches(g):
+    return [np.arange(i * NB, (i + 1) * NB, dtype=np.int32) % g.n
+            for i in range(2)]
+
+
+def _traced_sweep(backend, caps=None):
+    """Two exact batches untraced, then the same two under the profiler:
+    (λ untraced, λ traced, snapshots and relax calls of each traced batch,
+    the profiler, the adjacency)."""
+    g, q, ex = _executor(backend, caps)
+    plain = [solve(g, q, executor=ex, sources=s).lam for s in _batches(g)]
+    assert tracing.snapshot() == tracing.Snapshot([], {})
+    seen = _Relaxes(ex._adj)
+    got, snaps, calls = [], [], []
+    # inside an outer range, as the benchmark's window is: a thread's first
+    # range under the profiler pays the profiler's set-up after its start
+    with profile(activities=[ProfilerActivity.CPU]) as prof, \
+            record_function("window"):
+        for s in _batches(g):
+            before = seen.calls
+            got.append(solve(g, q, executor=ex, sources=s).lam)
+            snaps.append(tracing.snapshot())
+            calls.append(seen.calls - before)
+    return plain, got, snaps, calls, prof, ex._adj, seen
+
+
+def _tree(snap):
+    """{(name, parent name)} of a snapshot's spans."""
+    by_id = {s.id: s for s in snap.spans}
+    return {(s.name, by_id[s.parent].name if s.parent in by_id else None)
+            for s in snap.spans}
+
+
+def test_no_profiler_records_nothing():
+    assert not torch.autograd._profiler_enabled()
+    assert tracing.span("batch", rows=1) is tracing.span("mfbf")
+    with tracing.span("batch", torch.device("cpu"), rows=1) as sp:
+        assert sp is None
+        tracing.count("host_syncs")
+    g, q, ex = _executor("csr")
+    solve(g, q, executor=ex, sources=_batches(g)[0])
+    assert tracing.snapshot() == tracing.Snapshot([], {})
+
+
+@pytest.mark.parametrize("backend,caps", [("csr", None), ("csr", ((1, 1),)),
+                                          ("dense", None)])
+def test_span_tree_counts_and_bitwise_lambda(backend, caps):
+    plain, got, snaps, calls, prof, adj, seen = _traced_sweep(backend, caps)
+    for a, b in zip(plain, got):
+        assert np.array_equal(a, b)
+    want = ({("batch", None), ("mfbf", "batch"), ("mfbr", "batch"),
+             ("child_count", "mfbr")} if backend == "dense" else
+            {("batch", None), ("mfbf", "batch"), ("mfbr", "batch"),
+             ("child_count", "mfbr"), ("csr.relax", "mfbf"),
+             ("csr.relax", "mfbr")})
+    if caps is None and backend == "csr":
+        want |= {("csr.runs", "csr.relax")}
+    for snap, n_relax in zip(snaps, calls):
+        assert _tree(snap) == want
+        assert snap.counters == {"host_syncs": n_relax + 3}
+        assert len(snap.named("batch")) == 1
+        assert snap.named("batch")[0].attrs == {"rows": NB, "n": adj.n}
+        mfbr = snap.named("mfbr")[0]
+        kids = [s for s in snap.spans if s.parent == mfbr.id]
+        assert kids[0].name == "child_count"
+        assert all(s.device_ms is None for s in snap.spans)
+    spans = [s for snap in snaps for s in snap.spans]
+    name_of = {s.id: s.name for s in spans}
+    relaxes = [s for s in spans if s.name == "csr.relax"]
+    assert len(relaxes) == len(seen.stats)
+    for sp, st in zip(relaxes, seen.stats):
+        fallback = st.overflow == 1
+        assert fallback or caps is None
+        assert sp.attrs == {
+            "rows": NB, "n": adj.n,
+            "live_arcs": adj.src.shape[0] if fallback else st.arcs,
+            "cols": adj.n if fallback else st.nnz,
+            "outputs": 2 if name_of[sp.parent] == "mfbf" else 3,
+            "bucket": st.bucket}
+    # each span's host start against its range in the profiler's events
+    events = {}
+    for ev in prof.profiler.kineto_results.events():
+        if ev.name().startswith(tracing.PREFIX):
+            events.setdefault(ev.name(), []).append(ev.start_ns())
+    for name in {s.name for s in spans}:
+        starts = sorted(s.start_ns for s in spans if s.name == name)
+        ranges = sorted(events[tracing.PREFIX + name])
+        assert len(starts) == len(ranges)
+        assert max(abs(a - b) for a, b in zip(starts, ranges)) < 1e6
+
+
+def test_summary_self_time():
+    snap = tracing.Snapshot([
+        tracing.Span(0, None, "batch", {}, 0, 4_000_000, 4.0),
+        tracing.Span(1, 0, "mfbf", {}, 0, 1_000_000, 1.5),
+        tracing.Span(2, 0, "mfbr", {}, 1_000_000, 3_000_000, 2.0),
+        tracing.Span(3, 2, "child_count", {}, 1_000_000, 2_000_000, 0.5),
+    ], {"host_syncs": 4})
+    out = tracing.summary(snap)
+    assert out["batch"] == {"count": 1, "host_ms": 4.0, "device_ms": 4.0,
+                            "self_device_ms": 0.5}
+    assert out["mfbr"]["self_device_ms"] == 1.5
+    assert out["child_count"]["self_device_ms"] == 0.5
+
+
+@pytest.mark.parametrize("backend", ["csr", "dense"])
+def test_a_new_profile_drops_the_last_ones(backend):
+    g, q, ex = _executor(backend)
+    first, second = _batches(g)
+
+    def profiled(sources):
+        with profile(activities=[ProfilerActivity.CPU]), \
+                record_function("window"):
+            for s in sources:
+                solve(g, q, executor=ex, sources=s)
+
+    tracing.snapshot()
+    profiled([first])
+    one = tracing.snapshot(clear=False)
+    assert len(one.named("batch")) == 1
+    # untraced work between the profiles keeps the finished one readable
+    solve(g, q, executor=ex, sources=second)
+    assert tracing.snapshot(clear=False) == one
+    profiled([first, second])
+    two = tracing.snapshot(clear=False)
+    assert len(two.named("batch")) == 2
+    assert {s.id for s in one.spans}.isdisjoint(s.id for s in two.spans)
+    assert two.counters["host_syncs"] > one.counters["host_syncs"]
+    tracing.snapshot()
