@@ -22,9 +22,10 @@ order; any failed check raises and the script exits non-zero:
 3. main path — exact betweenness of a weighted R-MAT graph at scale 12
    (edge factor 16, Graph500 quadrant mix, integer weights in [1, 100],
    isolated vertices removed) through ``repro_torch.core.mfbc.mfbc`` on the
-   card, counting each kernel's launches; λ over the first 64 sources is
-   held against the numpy Brandes oracle (rtol 1e-5, atol 1e-8) and against
-   the same batch run with the plain versions on the card.
+   card, counting each kernel's launches (the child count's too); λ over
+   the first 64 sources is held against the numpy Brandes oracle (rtol
+   1e-5, atol 1e-8) and against the same batch run with the plain
+   versions on the card.
 4. scale 14 — one 64-source batch of a weighted scale-14 R-MAT graph: its
    seconds, peak device memory, and λ over its first 8 sources against the
    oracle; then each kernel alone and the child count are timed at
@@ -300,7 +301,10 @@ order; any failed check raises and the script exits non-zero:
        parameters after the last step against that step's (the norm of
        their difference within 1e-3 of the norm of the update, which
        must not be 0).
-    Phase 14a's step is a main-path run of the dense kernels.
+    Phase 14a's step is a main-path run of the dense kernels and the
+    child count kernel, which is then held bitwise to its plain form on
+    MFBF's distances at (64, 65536) and timed beside its bound and the
+    plain form's time.
 
 Each main-path run (phases 3, 4, 5a, 5b on the dense kernels, 6c and 6d
 on the sparse relax, every run of 7a, 7c and 7d on its backend's
@@ -369,6 +373,7 @@ from repro_torch.graphs.generators import rmat  # noqa: E402
 from repro_torch.launch.mesh import Mesh  # noqa: E402
 from repro_torch.kernels import _build, ref  # noqa: E402
 from repro_torch.kernels.centpath_mm import centpath_matmul_cuda  # noqa: E402
+from repro_torch.kernels.child_count import child_count_cuda  # noqa: E402
 from repro_torch.kernels.segment_relax import (LONG_RUN,  # noqa: E402
                                                segment_relax_cuda)
 from repro_torch.kernels.tropical_mm import (BM, BN,  # noqa: E402
@@ -435,9 +440,18 @@ SEGMENT_RELAX = dict(
     wrapper=segment_relax_cuda,
     source="src/repro_torch/kernels/csrc/segment_relax.cu",
     replaces="src/repro/core/monoids.py:219")
+# The dense SP-DAG child count (phases 2, 3, 4 and 14a). No Pallas kernel
+# stands behind it either: it replaces the reference's jnp count.
+CHILD_COUNT = dict(
+    wrapper=child_count_cuda,
+    source="src/repro_torch/kernels/csrc/child_count.cu",
+    replaces="src/repro/core/monoids.py:186")
 WRAPPERS = {**{name: k["wrapper"] for name, k in KERNELS.items()},
-            "segment_relax": segment_relax_cuda}
+            "segment_relax": segment_relax_cuda,
+            "child_count": child_count_cuda}
 DENSE_PATH = tuple(KERNELS)  # the kernels each dense run must launch
+# and each single-host dense run (a mesh counts children by a product)
+DENSE_COUNT_PATH = DENSE_PATH + ("child_count",)
 SPARSE_PATH = ("segment_relax",)  # and each COO / CSR run
 
 
@@ -538,6 +552,49 @@ def bound(name: str, nb: int, n: int, n2: int):
     t_ops, t_bytes = instr / PEAK_INSTR_PER_S, nbytes / PEAK_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
+
+
+def child_count_bound(nb: int, n: int):
+    """(bound_ms, bound_by) of one dense child count of nb rows over n
+    vertices: a product's shape, (nb, n) x (n, n), each candidate cell an
+    add and a compare (2·nb·n·n instructions), against Tw read as the rows
+    and as the targets, A once and the int32 counts written once."""
+    instr = 2.0 * nb * n * n
+    nbytes = 4.0 * (2 * nb * n + n * n + nb * n)
+    t_ops, t_bytes = instr / PEAK_INSTR_PER_S, nbytes / PEAK_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def time_child_count(adj, Tw: torch.Tensor, label: str, plain_iters: int):
+    """Hold the child count kernel (``adj.count_sp_children`` on the card)
+    bitwise to the plain form on ``Tw``, time both and log them beside the
+    bound. Returns (ms, plain_ms, bound_ms, bound_by)."""
+    def plain():
+        return monoids.count_sp_children_dense(Tw, adj.a, block=adj.block)
+
+    before = child_count_cuda.launches
+    got = adj.count_sp_children(Tw)
+    torch.cuda.synchronize()
+    if child_count_cuda.launches != before + 1:
+        raise AssertionError(f"{label}: the child count kernel did not run")
+    want = plain()
+    if not torch.equal(got, want):
+        raise AssertionError(f"{label}: child count not bitwise equal to "
+                             f"the plain form ({int((got != want).sum())} "
+                             f"of {got.numel()} differ)")
+    hits = int(want.sum())
+    del got, want
+    ms = time_ms(lambda: adj.count_sp_children(Tw), iters=20)
+    plain_ms = time_ms(plain, iters=plain_iters, warmup=1)
+    nb, n = Tw.shape
+    b_ms, b_by = child_count_bound(nb, n)
+    log(f"time child_count {(nb, n, n)} ({label}, {hits} children): kernel "
+        f"{ms:.4f} ms, plain (block {adj.block}) {plain_ms:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}), {100 * b_ms / ms:.1f}% of bound; "
+        f"S={pick_splits(nb, n, n, sm_count(0))}; bitwise equal to the "
+        "plain form")
+    return ms, plain_ms, b_ms, b_by
 
 
 def launch_shape(nb: int, n: int, n2: int) -> str:
@@ -3643,7 +3700,7 @@ def phase14a(launches, errs: dict) -> dict:
     lam = b.fn(a, src, valid)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    got = tally(launches, DENSE_PATH, "14a")
+    got = tally(launches, DENSE_COUNT_PATH, "14a")
     b.check(lam)
     peak = torch.cuda.max_memory_allocated()
     log(f"14a: step {dt:.3f}s, launches {got}, peak device memory "
@@ -3681,6 +3738,8 @@ def phase14a(launches, errs: dict) -> dict:
     Tw, Tm, tr_bf = mfbf(adj, src.long(), trace=True)
     Tw[torch.arange(BC64K_NB, device=DEV), src.long()] = INF
     Tm[torch.arange(BC64K_NB, device=DEV), src.long()] = 1.0
+    out["child_count"] = time_child_count(adj, Tw, "14a, MFBF's distances",
+                                          plain_iters=1)
     _, tr_br = mfbr(adj, Tw, Tm, trace=True)
     log(f"14a: uncapped, MFBF runs {tr_bf.iters} iterations and MFBr "
         f"{tr_br.iters} on this graph; the cell caps both at {iters} "
@@ -3936,9 +3995,7 @@ def main() -> None:
         del fw, f2, adj
     Tw12, _ = mfbc_batch(adj12, src, torch.ones(64, dtype=torch.bool,
                                                  device=DEV))[1:]
-    csc_ms = time_ms(lambda: adj12.count_sp_children(Tw12), iters=10)
-    log(f"time count_sp_children (plain, 64 x {n12}, block "
-        f"{adj12.block}): {csc_ms:.4f} ms")
+    time_child_count(adj12, Tw12, "s12", plain_iters=10)
     del args, f_w, f_m, c_w, c_p, Tw12
     torch.cuda.empty_cache()
 
@@ -3956,7 +4013,7 @@ def main() -> None:
     t0 = time.perf_counter()
     lam = mfbc(g12, n_b=64, device="cuda", progress_cb=progress)
     dt = time.perf_counter() - t0
-    phase = tally(launches, DENSE_PATH, "the scale-12 main path")
+    phase = tally(launches, DENSE_COUNT_PATH, "the scale-12 main path")
     n_batches = -(-g12.n // 64)
     log(f"main path: {n_batches} batches in {dt:.3f}s, "
         f"{g12.m * g12.n / dt:,.0f} TEPS (model), launches {phase}")
@@ -3994,7 +4051,7 @@ def main() -> None:
     lam8, Tw14, _ = mfbc_batch(adj14, src, valid)
     lam8 = lam8.cpu().numpy().astype(np.float64)
     dt14 = time.perf_counter() - t0
-    launches14 = tally(launches, DENSE_PATH, "the scale-14 batch")
+    launches14 = tally(launches, DENSE_COUNT_PATH, "the scale-14 batch")
     peak = torch.cuda.max_memory_allocated()
     log(f"scale 14: adjacency upload {t_adj:.3f}s, one 64-source batch "
         f"{dt14:.3f}s, launches {launches14}, peak device memory "
@@ -4015,10 +4072,7 @@ def main() -> None:
               "centpath_mm": (c_w, torch.isfinite(c_w).float(), adj14.at)}
     for name in KERNELS:
         time_kernel(name, args14[name], (64, n14, n14), with_plain=False)
-    csc_ms = time_ms(lambda: adj14.count_sp_children(Tw14), iters=3,
-                     warmup=1)
-    log(f"time count_sp_children (plain, 64 x {n14}, block "
-        f"{adj14.block}): {csc_ms:.4f} ms")
+    time_child_count(adj14, Tw14, "s14", plain_iters=3)
     del adj14, f_w, c_w, args14, Tw14
     torch.cuda.empty_cache()
 
@@ -4147,7 +4201,7 @@ def main() -> None:
 
     # 14. the paper's own architecture, the dry run, a sharded LM step
     t14 = time.perf_counter()
-    phase14(launches, errs)
+    times14 = phase14(launches, errs)
     log(f"phase 14 in {time.perf_counter() - t14:.1f}s; the script in "
         f"{time.perf_counter() - t_start:.1f}s")
 
@@ -4165,6 +4219,13 @@ def main() -> None:
                  **{k: relax_times[k] for k in (
                      "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                      "library_parts_ms")}})
+    cc_ms, cc_plain, cc_bound, cc_by = times14["dense_64k"]["child_count"]
+    rows.append({"name": "child_count", "route": "cuda",
+                 "source": CHILD_COUNT["source"],
+                 "replaces": CHILD_COUNT["replaces"],
+                 "launches": launches["child_count"], "max_abs_err": 0,
+                 "ms": cc_ms, "plain_ms": cc_plain, "bound_ms": cc_bound,
+                 "bound_by": cc_by, "library_ms": None})
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

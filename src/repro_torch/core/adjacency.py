@@ -72,7 +72,7 @@ class DenseAdj:
     a: torch.Tensor  # (n, n) float32, inf off-structure
     # Transpose hoisted out of the relax loop: made contiguous once here.
     at: Optional[torch.Tensor] = None
-    block: int = 512  # u-block of count_sp_children
+    block: int = 512  # u-block of the plain count_sp_children (CPU only)
     # Contraction split count of the kernels on the card; None lets each
     # product pick its own from its shape. Fixed, a row's tie sums do not
     # depend on how many rows share its batch (``for_batches``).
@@ -110,7 +110,9 @@ class DenseAdj:
         return Centpath(w, p, c)
 
     def count_sp_children(self, Tw: torch.Tensor) -> torch.Tensor:
-        return monoids.count_sp_children_dense(Tw, self.a, block=self.block)
+        """On the card the Hopper kernel over ``at``; on the CPU the plain
+        form over ``a`` in u-blocks of ``block``."""
+        return kops.count_sp_children(Tw, self.a, self.at, self.block)
 
 
 @dataclasses.dataclass

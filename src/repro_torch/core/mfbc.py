@@ -322,7 +322,8 @@ def mfbc(g: Graph, *, n_b: Optional[int] = None, backend: str = "dense",
         passing) or "csr" (frontier-compacted segment-op message passing).
       iterate: "while" | "fori" (fixed ``max_iters`` iterations).
       max_iters: iteration bound for "fori" (default n-1).
-      block: u-block of the SP-DAG child count.
+      block: u-block of the SP-DAG child count's plain form, which runs
+        on the CPU only (the card's kernel has its own tiles).
       sources: optionally restrict to these sources (approximate BC).
       progress_cb: optional callback(batch_idx, n_batches, lam_partial)
         — the checkpoint hook.

@@ -25,13 +25,16 @@ device: the population of the next frontier, taken from the ``newly`` mask
 ``trace=True`` also returns the sweep's ``SweepTrace``.
 
 The back-propagation is an ``mfbr`` span of ``repro_torch.tracing``, and
-the child count its first child span, ``child_count``.
+the child count its first child span, ``child_count``, with the count's
+``rows`` and ``n`` and ``dense`` 1 for the dense form (``DenseAdj``), 0
+for the COO form.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch import tracing
+from repro_torch.core.adjacency import DenseAdj
 from repro_torch.core.mfbf import empty_trace, read_counts, record
 from repro_torch.core.monoids import INF, Centpath
 
@@ -71,7 +74,8 @@ def mfbr(adj, Tw: torch.Tensor, Tm: torch.Tensor, *, iterate: str = "while",
         finite = torch.isfinite(Tw)
         # the paper's (∞, 1) reciprocal guard
         Tm_safe = torch.where(Tm > 0, Tm, 1.0)
-        with tracing.span("child_count", Tw.device):
+        with tracing.span("child_count", Tw.device, rows=Tw.shape[0],
+                          n=adj.n, dense=int(isinstance(adj, DenseAdj))):
             c0 = adj.count_sp_children(Tw)
         Zp0 = torch.zeros_like(Tw)
         seed = finite & (c0 == 0)

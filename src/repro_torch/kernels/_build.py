@@ -21,7 +21,7 @@ from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("multpath_mm", "centpath_mm", "segment_relax")
+SOURCES = ("multpath_mm", "centpath_mm", "segment_relax", "child_count")
 # No --use_fast_math: the kernels rely on exact IEEE inf arithmetic and on
 # bitwise-equal weights. -Xptxas=-v reports registers and spills.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

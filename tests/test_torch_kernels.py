@@ -8,7 +8,10 @@ rtol 1e-6, ``p`` within rtol 1e-5.
 
 The tests marked ``cuda`` hold each Hopper kernel against its plain version
 on the card and check that the launch counter moves (the sparse-relax
-kernel's are in ``tests/test_torch_segment_relax.py``); they skip on a
+kernel's are in ``tests/test_torch_segment_relax.py``); the SP-DAG child
+count is held bitwise to ``core.monoids.count_sp_children_dense`` at ragged
+shapes, every split count ``pick_splits`` can give and inputs with ties,
+zero-weight arcs, ±0, rows of +inf and sums that overflow. They skip on a
 host without a card. On the card they run with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels.py
@@ -19,9 +22,13 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core.monoids import count_sp_children_dense
 from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels.centpath_mm import centpath_matmul_cuda
-from repro_torch.kernels.tropical_mm import multpath_matmul_cuda
+from repro_torch.kernels.child_count import child_count_cuda
+from repro_torch.kernels.tropical_mm import (BK, MIN_SLICE_K_TILES,
+                                             _even_splits,
+                                             multpath_matmul_cuda)
 
 INF = np.inf
 SHAPES = [(8, 16, 16), (8, 128, 128), (16, 200, 136), (128, 128, 256),
@@ -29,6 +36,12 @@ SHAPES = [(8, 16, 16), (8, 128, 128), (16, 200, 136), (128, 128, 256),
 # On the card also shapes that split the contraction: the scale-12 main
 # path's, one with k shorter than a slice, and one with a single row.
 CARD_SHAPES = SHAPES + [(64, 3342, 3342), (64, 17, 1000), (1, 5000, 64)]
+# The child count's (nb, n): nb 1, 3 and 64 (and past one row tile), n
+# ragged against the 64-wide tile and the 16-deep stage, and n = 4k + 2
+# for the 4-byte copies.
+CHILD_SHAPES = [(1, 1), (1, 37), (3, 100), (3, 1003), (64, 1000),
+                (64, 3342), (65, 130), (130, 258)]
+CHILD_KINDS = ("random", "special", "float")
 
 
 @pytest.fixture
@@ -82,6 +95,44 @@ def _inputs(kind, which, nb, n, n2, seed):
                 np.ones((n, n2), np.float32))
     f = _rand_multpath(rng, nb, n) if mp else _rand_centpath(rng, nb, n)
     return (*f, _rand_adj(rng, n, n2))
+
+
+def _child_inputs(kind, nb, n, seed):
+    """numpy (tw, a) of one input kind for the child count.
+
+    ``random``: integer distances and weights, zero-weight arcs among
+    them. ``special``: also ±0.0 distances and weights, +inf, -inf and NaN
+    distances, a row of +inf, and distances and weights of 3e38 whose sums
+    overflow to inf. ``float``: non-integer distances and weights, with
+    ties planted as ``tw[s, u] = float32(tw[s, v] + a[v, u])``."""
+    rng = np.random.default_rng(seed)
+    a = np.where(rng.random((n, n)) < 0.3, rng.integers(0, 4, (n, n)),
+                 INF).astype(np.float32)
+    tw = rng.integers(0, 8, (nb, n)).astype(np.float32)
+    if kind == "special":
+        for x, vals in ((a, (-0.0, 0.0, 3e38)),
+                        (tw, (-0.0, 0.0, 3e38, INF, -INF, np.nan))):
+            for v in vals:
+                x[rng.random(x.shape) < 0.04] = v
+        tw[rng.integers(nb)] = INF
+    elif kind == "float":
+        a = np.where(np.isfinite(a), rng.random((n, n)) * 3,
+                     INF).astype(np.float32)
+        tw = (rng.random((nb, n)) * 10).astype(np.float32)
+        vv, uu = np.nonzero(np.isfinite(a))
+        pick = rng.integers(0, len(vv), min(len(vv), 4 * n)) if len(vv) \
+            else np.zeros(0, np.int64)
+        for v, u in zip(vv[pick], uu[pick]):
+            s = rng.integers(nb)
+            tw[s, u] = np.float32(tw[s, v] + a[v, u])
+    return tw, a
+
+
+def _all_splits(nb, n):
+    """Every split count ``pick_splits`` can give at this shape."""
+    k_tiles = -(-n // BK)
+    s_max = max(1, k_tiles // MIN_SLICE_K_TILES)
+    return sorted({_even_splits(s, k_tiles) for s in range(1, s_max + 1)})
 
 
 def _assert_multpath(got, want):
@@ -164,6 +215,45 @@ def test_ops_have_no_path_for_other_devices():
         ops.multpath_matmul(x, x, a)
     with pytest.raises(ValueError, match="no path for device meta"):
         ops.centpath_matmul(x, x, a)
+    with pytest.raises(ValueError, match="no path for device meta"):
+        ops.count_sp_children(x, a, a, 4)
+
+
+@pytest.mark.parametrize("what", ["cpu", "float64", "non-contiguous"])
+def test_child_count_wrapper_refuses_what_the_kernel_does_not_take(what):
+    """No quiet fallback: the child count's wrapper raises before any
+    launch on a CPU operand, a float64 one or a non-contiguous one (on a
+    host without a card each is refused for its device first; the card's
+    messages are held by ``test_child_count_checks_on_card``)."""
+    tw, at = torch.zeros(3, 8), torch.zeros(8, 8)
+    if what == "float64":
+        tw = tw.double()
+    elif what == "non-contiguous":
+        at = torch.zeros(8, 16)[:, ::2]
+    before = child_count_cuda.launches
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        child_count_cuda(tw, at)
+    assert child_count_cuda.launches == before
+
+
+def test_dense_adj_counts_cpu_tensors_with_the_plain_form(monkeypatch):
+    """A CPU ``Tw`` goes to ``count_sp_children_dense`` over ``a`` in the
+    adjacency's u-block, never to the kernel's wrapper."""
+    from repro_torch.core import monoids
+    from repro_torch.core.adjacency import DenseAdj
+
+    tw, a = (torch.from_numpy(x) for x in _child_inputs("special", 3, 37, 5))
+    seen = []
+
+    def plain(*args, **kw):
+        seen.append(kw["block"])
+        return count_sp_children_dense(*args, **kw)
+
+    monkeypatch.setattr(monoids, "count_sp_children_dense", plain)
+    before = child_count_cuda.launches
+    got = DenseAdj(a, block=8).count_sp_children(tw)
+    assert seen == [8] and child_count_cuda.launches == before
+    assert torch.equal(got, count_sp_children_dense(tw, a, block=256))
 
 
 @pytest.mark.parametrize("name", _build.SOURCES)
@@ -275,3 +365,43 @@ def test_one_row_relax_on_a_for_batches_adjacency(cuda):
     torch.testing.assert_close(crow.p, cwant[1], rtol=1e-5, atol=0.0)
     for x, y in zip(tuple(row) + tuple(crow), tuple(batch) + tuple(cbatch)):
         assert torch.equal(x, y[:1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", CHILD_KINDS)
+@pytest.mark.parametrize("nb,n", CHILD_SHAPES)
+def test_child_count_kernel_matches_plain_on_card(nb, n, kind, cuda):
+    """Bitwise against the plain form at every split count ``pick_splits``
+    can give here, and with its own choice through ``DenseAdj``."""
+    from repro_torch.core.adjacency import DenseAdj
+
+    tw, a = (_t(x, cuda) for x in _child_inputs(kind, nb, n, nb * n))
+    adj = DenseAdj(a)
+    want = count_sp_children_dense(tw, a, block=256)
+    assert kind != "random" or n < 8 or int(want.sum()) > 0
+    before = child_count_cuda.launches
+    got = adj.count_sp_children(tw)
+    torch.cuda.synchronize()
+    assert child_count_cuda.launches == before + 1
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    for splits in _all_splits(nb, n):
+        got = child_count_cuda(tw, adj.at, splits)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), splits
+
+
+@pytest.mark.cuda
+def test_child_count_checks_on_card(cuda):
+    tw = torch.zeros(3, 8, device=cuda)
+    at = torch.zeros(8, 8, device=cuda)
+    before = child_count_cuda.launches
+    with pytest.raises(ValueError, match="float32 only"):
+        child_count_cuda(tw.double(), at)
+    with pytest.raises(ValueError, match="contiguous"):
+        child_count_cuda(tw, torch.zeros(8, 16, device=cuda)[:, ::2])
+    with pytest.raises(ValueError, match="do not chain"):
+        child_count_cuda(tw, torch.zeros(7, 8, device=cuda))
+    with pytest.raises(ValueError, match="must be"):
+        child_count_cuda(tw, torch.zeros(8, 9, device=cuda))
+    assert child_count_cuda.launches == before
+    assert child_count_cuda(tw[:0], at).shape == (0, 8)

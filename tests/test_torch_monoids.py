@@ -111,6 +111,26 @@ def test_count_sp_children_dense_matches_reference(nb, n, block):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+@pytest.mark.parametrize("nb,n,block", [(4, 30, 8), (6, 64, 16), (2, 17, 256)])
+def test_dense_adj_child_count_on_cpu_matches_reference(nb, n, block):
+    """``DenseAdj.count_sp_children`` on a CPU ``Tw`` (the plain form, the
+    card's kernel being for CUDA tensors) against the reference's count,
+    with ±0.0 weights and distances and a row of +inf among the inputs."""
+    from repro_torch.core.adjacency import DenseAdj
+
+    rng = np.random.default_rng(n + 1)
+    tw, _ = _mp(rng, (nb, n), density=0.8, wmax=8)
+    tw[rng.random(tw.shape) < 0.1] = -0.0
+    tw[0] = INF
+    a = _adj(rng, n, n, density=0.4)
+    a[rng.random(a.shape) < 0.1] = -0.0
+    want = jm.count_sp_children_dense(jnp.asarray(tw), jnp.asarray(a),
+                                      block=block)
+    got = DenseAdj(_t(a), block=block).count_sp_children(_t(tw))
+    assert got.dtype == torch.int32 and int(got.sum()) > 0
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
 @pytest.mark.parametrize("b", [
     [[INF, 1.0], [INF, INF]],  # no edge vs an inactive frontier entry
     [[-INF, -1.0], [INF, -INF]],  # (-inf) - (-w) and (-inf) - (-inf)

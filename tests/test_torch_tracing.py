@@ -7,11 +7,15 @@
   csr.runs, mfbr ⊃ {child_count, csr.relax ⊃ csr.runs}}`` (on the dense
   adjacency ``batch ⊃ {mfbf, mfbr ⊃ child_count}``); each ``csr.relax``
   carries its relax's live arcs (the whole arc list on the fallback);
-  ``host_syncs`` counts relax calls + 3 a batch; each span's host start
-  lies within 1 ms of its ``repro_torch.<name>`` range in the profiler's
-  events; λ is bitwise λ untraced.
+  ``host_syncs`` counts relax calls + 3 a batch; ``child_count`` carries
+  its rows, n and ``dense`` (1 on the dense adjacency, 0 on the COO form
+  that CSR runs); each span's host start lies within 1 ms of its
+  ``repro_torch.<name>`` range in the profiler's events; λ is bitwise λ
+  untraced.
 * A new profile drops the spans and counts of the last one, and only
-  then: a reader of a finished profile reads that profile's alone.
+  then: a reader of a finished profile reads that profile's alone. The
+  child count kernel's ``child_count.launch`` counter follows the same
+  rule.
 
 The benchmark's readers of these spans are tested beside the benchmark,
 in ``portbench/tests/test_portbench_tracing.py``.
@@ -138,6 +142,8 @@ def test_span_tree_counts_and_bitwise_lambda(backend, caps):
         mfbr = snap.named("mfbr")[0]
         kids = [s for s in snap.spans if s.parent == mfbr.id]
         assert kids[0].name == "child_count"
+        assert kids[0].attrs == {"rows": NB, "n": adj.n,
+                                 "dense": int(backend == "dense")}
         assert all(s.device_ms is None for s in snap.spans)
     spans = [s for snap in snaps for s in snap.spans]
     name_of = {s.id: s.name for s in spans}
@@ -202,3 +208,29 @@ def test_a_new_profile_drops_the_last_ones(backend):
     assert {s.id for s in one.spans}.isdisjoint(s.id for s in two.spans)
     assert two.counters["host_syncs"] > one.counters["host_syncs"]
     tracing.snapshot()
+
+
+def test_child_count_launch_counter_keeps_one_stretch():
+    """Each launch of the child count kernel adds one to its wrapper's
+    ``launches`` and, while the profiler runs, to ``child_count.launch``;
+    a new profile drops the last one's count (on the CPU the launch's
+    bookkeeping is called without the kernel)."""
+    from repro_torch.kernels import child_count as cc
+
+    def profiled(k):
+        with profile(activities=[ProfilerActivity.CPU]), \
+                record_function("window"):
+            for _ in range(k):
+                cc._count_launch()
+
+    tracing.snapshot()
+    before = cc.child_count_cuda.launches
+    cc._count_launch()  # untraced: the plain count only
+    assert tracing.snapshot(clear=False) == tracing.Snapshot([], {})
+    profiled(2)
+    assert tracing.snapshot(clear=False).counters == {cc.LAUNCH_COUNTER: 2}
+    cc._count_launch()
+    assert tracing.snapshot(clear=False).counters == {cc.LAUNCH_COUNTER: 2}
+    profiled(1)
+    assert tracing.snapshot().counters == {cc.LAUNCH_COUNTER: 1}
+    assert cc.child_count_cuda.launches == before + 5
