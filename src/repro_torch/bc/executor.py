@@ -434,7 +434,8 @@ class MeshExecutor(_ExecutorBase):
     rank 0's plan. A call the executor refuses (a metric other than
     betweenness, ``labels()``, a batch over ``n_b``) raises before
     ``mirror`` sees it, and so does a failure of rank 0's lazy context
-    upload, which needs no collective.
+    upload, which needs no collective. Each call is a ``batch`` span of
+    ``repro_torch.tracing`` (rows, n), as on the single host.
     """
 
     HOOKS = ("_moments", "_sum", "_segmented")  # what ``replay`` runs
@@ -484,19 +485,26 @@ class MeshExecutor(_ExecutorBase):
                              f"{hook!r}")
         return getattr(self, hook)(*args)
 
+    def _batch(self, src):
+        """The ``batch`` span of one call: uploads, the distributed body,
+        the statistics' collectives and their copy to the host."""
+        return tracing.span("batch", self.mesh.device, rows=src.shape[0],
+                            n=self._g.n)
+
     def _moments(self, src, val) -> Moments:
         ctx = self._context()
-        with self._mirrored("_moments", src, val):
+        with self._batch(src), self._mirrored("_moments", src, val):
             return ctx.run_moments(src, val, nb=self.n_b)
 
     def _sum(self, src, val) -> np.ndarray:
         ctx = self._context()
-        with self._mirrored("_sum", src, val):
+        with self._batch(src), self._mirrored("_sum", src, val):
             return ctx.run_sum(src, val, nb=self.n_b)
 
     def _segmented(self, src, val, sid, n_seg: int) -> Moments:
         ctx = self._context()
-        with self._mirrored("_segmented", src, val, sid, n_seg):
+        with self._batch(src), self._mirrored("_segmented", src, val, sid,
+                                              n_seg):
             return ctx.run_segmented(src, val, sid, n_seg, nb=src.shape[0])
 
 

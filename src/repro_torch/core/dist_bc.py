@@ -33,11 +33,22 @@ graph size by default), the port stops a sweep when its frontier is empty
 on every rank: one whole-world MAX of a flag per iteration
 (``Mesh.any_rank``), still bounded by ``iters``. Every rank therefore
 runs the same collectives; the skipped iterations would change nothing.
+The frontier's rows are gathered (step 1 below) while the flag crosses
+to the host, so that the card is not left idle on the host's read and the
+gather's launch after it; the sweep's last such gather goes unused.
 
 Results (``run_sum``, ``run_moments``, ``run_segmented``) come back to
 the host as float64 in the original vertex order, length n, identical on
 every rank: the batch statistics are summed over the batch axes, then
 gathered over model.
+
+While ``torch.profiler`` runs (``repro_torch.tracing``), a batch records
+the single card's spans ``mfbf``, ``mfbr`` and, inside ``mfbr``,
+``child_count`` (rows, n, ``dense`` 0, ``mesh`` 1), and one ``mesh.relax``
+span around each local product (``kind`` ``mp`` or ``cp``, ``rows``, ``k``
+= n/model, ``cols`` = n/data); the collectives record theirs in
+``launch.mesh``, and the copy of the results to the host counts one
+``host_syncs``.
 """
 from __future__ import annotations
 
@@ -49,6 +60,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch import tracing
 from repro_torch.core.mfbc import segment_fold
 from repro_torch.core.monoids import INF, Centpath, Multpath, multpath_combine
 from repro_torch.kernels import ops as kops
@@ -82,12 +94,21 @@ class BCMeshConfig:
                 else self.data_axis)
 
 
+def _relax_span(kind: str, fw, blk):
+    """The ``mesh.relax`` span of one local product, (rows, k) x (k,
+    cols)."""
+    return tracing.span("mesh.relax", fw.device, kind=kind, rows=fw.shape[0],
+                        k=blk.shape[0], cols=blk.shape[1])
+
+
 def _local_relax_mp(cfg, F: Multpath, a_loc) -> Multpath:
-    return Multpath(*kops.multpath_matmul(F.w, F.m, a_loc, cfg.splits))
+    with _relax_span("mp", F.w, a_loc):
+        return Multpath(*kops.multpath_matmul(F.w, F.m, a_loc, cfg.splits))
 
 
 def _local_relax_cp(cfg, F: Centpath, at_loc) -> Centpath:
-    return Centpath(*kops.centpath_matmul(F.w, F.p, at_loc, cfg.splits))
+    with _relax_span("cp", F.w, at_loc):
+        return Centpath(*kops.centpath_matmul(F.w, F.p, at_loc, cfg.splits))
 
 
 def _gather_rows(mesh, cfg, tree):
@@ -109,17 +130,19 @@ def _slice_rows(mesh, cfg, tree):
     return slice_tree(tree, mesh, cfg.data_axis, 0)
 
 
-def _dist_relax_mp(mesh, cfg, F: Multpath, a_loc) -> Multpath:
-    """One distributed MFBF relaxation (steps 1–4)."""
-    C_part = _local_relax_mp(cfg, _gather_rows(mesh, cfg, F), a_loc)
+def _dist_relax_mp(mesh, cfg, F_rows: Multpath, a_loc) -> Multpath:
+    """One distributed MFBF relaxation (steps 2–4) of a frontier whose
+    rows step 1 gathered (``_gather_rows``)."""
+    C_part = _local_relax_mp(cfg, F_rows, a_loc)
     C = _reduce_scatter_gather(mesh, cfg, C_part, mp_reduce)
     return _slice_rows(mesh, cfg, C)
 
 
-def _dist_relax_cp(mesh, cfg, F: Centpath, at_loc) -> Centpath:
-    """One distributed MFBr relaxation. The product reads F's w and p
-    only, so ``F.c`` may be None and is then not gathered."""
-    C_part = _local_relax_cp(cfg, _gather_rows(mesh, cfg, F), at_loc)
+def _dist_relax_cp(mesh, cfg, F_rows: Centpath, at_loc) -> Centpath:
+    """One distributed MFBr relaxation (steps 2–4) of gathered rows. The
+    product reads F's w and p only, so ``F.c`` may be None and is then not
+    gathered."""
+    C_part = _local_relax_cp(cfg, F_rows, at_loc)
     C = _reduce_scatter_gather(mesh, cfg, C_part, cp_reduce)
     return _slice_rows(mesh, cfg, C)
 
@@ -133,8 +156,8 @@ def _count_children(mesh, cfg, Tw, at_loc):
     first — +inf would win the max-select.
     """
     w = torch.where(torch.isfinite(Tw), Tw, -INF)
-    Pc = _dist_relax_cp(mesh, cfg, Centpath(w, torch.zeros_like(Tw), None),
-                        at_loc)
+    Pc = _dist_relax_cp(mesh, cfg, _gather_rows(
+        mesh, cfg, Centpath(w, torch.zeros_like(Tw), None)), at_loc)
     hit = (Pc.w == Tw) & torch.isfinite(Tw) & (Pc.c > 0)
     return torch.where(hit, Pc.c, 0.0).to(torch.int32)
 
@@ -158,6 +181,13 @@ def _seed_multpath(mesh, cfg, sources_loc):
     return Multpath(torch.where(hit, 0.0, INF), hit.to(torch.float32))
 
 
+def _stop_test(mesh, cfg, active):
+    """Whether the sweep goes on: ``Mesh.any_rank`` of its frontier's
+    entries, read when the returned function is called (always true on an
+    unrolled step, which has no stop test)."""
+    return (lambda: True) if cfg.unroll else mesh.any_rank(active)
+
+
 def _batch_delta_local(mesh, cfg: BCMeshConfig, a_loc, at_loc, sources_loc,
                        valid_loc):
     """The full Algorithm 3 batch, this rank's view.
@@ -169,49 +199,59 @@ def _batch_delta_local(mesh, cfg: BCMeshConfig, a_loc, at_loc, sources_loc,
     tests) that fix the batch's collective bytes.
     """
     n_mp, n_cp, n_stop = 1, 1, 0  # the seed relax and the child count
+    dev = a_loc.device
     # ---- MFBF ----
-    T = _dist_relax_mp(mesh, cfg, _seed_multpath(mesh, cfg, sources_loc),
-                       a_loc)  # direct edges (paper line 1)
-    F = T
-    for _ in range(cfg.iters_bf):
-        n_stop += 1
-        if not cfg.unroll and not mesh.any_rank(torch.isfinite(F.w)
-                                                & (F.m > 0)):
-            break
-        n_mp += 1
-        C = _dist_relax_mp(mesh, cfg, F, a_loc)
-        T = multpath_combine(T, C)
-        keep = (C.w == T.w) & torch.isfinite(C.w) & (C.m > 0)
-        F = Multpath(torch.where(keep, C.w, INF), torch.where(keep, C.m, 0.0))
+    with tracing.span("mfbf", dev):
+        T = _dist_relax_mp(mesh, cfg, _gather_rows(
+            mesh, cfg, _seed_multpath(mesh, cfg, sources_loc)),
+            a_loc)  # direct edges (paper line 1)
+        F = T
+        for _ in range(cfg.iters_bf):
+            n_stop += 1
+            more = _stop_test(mesh, cfg, torch.isfinite(F.w) & (F.m > 0))
+            rows = _gather_rows(mesh, cfg, F)
+            if not more():
+                break
+            n_mp += 1
+            C = _dist_relax_mp(mesh, cfg, rows, a_loc)
+            T = multpath_combine(T, C)
+            keep = (C.w == T.w) & torch.isfinite(C.w) & (C.m > 0)
+            F = Multpath(torch.where(keep, C.w, INF),
+                         torch.where(keep, C.m, 0.0))
 
-    # ---- mask the t = s destination ----
-    ids = _local_ids(mesh, cfg)
-    self_col = sources_loc[:, None].long() == ids[None, :]
-    Tw = torch.where(self_col, INF, T.w)
-    Tm_safe = torch.where(self_col | (T.m <= 0), 1.0, T.m)
-    finite = torch.isfinite(Tw)
+    with tracing.span("mfbr", dev):
+        # ---- mask the t = s destination ----
+        ids = _local_ids(mesh, cfg)
+        self_col = sources_loc[:, None].long() == ids[None, :]
+        Tw = torch.where(self_col, INF, T.w)
+        Tm_safe = torch.where(self_col | (T.m <= 0), 1.0, T.m)
+        finite = torch.isfinite(Tw)
 
-    # ---- MFBr ----
-    c = _count_children(mesh, cfg, Tw, at_loc)
-    Zp = torch.zeros_like(Tw)
-    done = finite & (c == 0)
-    newly = done
+        # ---- MFBr ----
+        with tracing.span("child_count", dev, rows=Tw.shape[0], n=cfg.n,
+                          dense=0, mesh=1):
+            c = _count_children(mesh, cfg, Tw, at_loc)
+        Zp = torch.zeros_like(Tw)
+        done = finite & (c == 0)
+        newly = done
 
-    def frontier(mask):
-        return Centpath(torch.where(mask, Tw, -INF),
-                        torch.where(mask, Zp + 1.0 / Tm_safe, 0.0), None)
+        def frontier(mask):
+            return Centpath(torch.where(mask, Tw, -INF),
+                            torch.where(mask, Zp + 1.0 / Tm_safe, 0.0), None)
 
-    for _ in range(cfg.iters_br):
-        n_stop += 1
-        if not cfg.unroll and not mesh.any_rank(newly):
-            break
-        n_cp += 1
-        Pc = _dist_relax_cp(mesh, cfg, frontier(newly), at_loc)
-        contrib = (Pc.w == Tw) & finite & (Pc.c > 0)
-        Zp = Zp + torch.where(contrib, Pc.p, 0.0)
-        c = c - torch.where(contrib, Pc.c.to(c.dtype), 0)
-        newly = finite & (c == 0) & ~done
-        done = done | newly
+        for _ in range(cfg.iters_br):
+            n_stop += 1
+            more = _stop_test(mesh, cfg, newly)
+            rows = _gather_rows(mesh, cfg, frontier(newly))
+            if not more():
+                break
+            n_cp += 1
+            Pc = _dist_relax_cp(mesh, cfg, rows, at_loc)
+            contrib = (Pc.w == Tw) & finite & (Pc.c > 0)
+            Zp = Zp + torch.where(contrib, Pc.p, 0.0)
+            c = c - torch.where(contrib, Pc.c.to(c.dtype), 0)
+            newly = finite & (c == 0) & ~done
+            done = done | newly
 
     mask = finite & valid_loc[:, None]
     return torch.where(mask, Zp * T.m, 0.0), mask, (n_mp, n_cp, n_stop)
@@ -410,6 +450,7 @@ class MeshBCContext:
                                      dist.ReduceOp.SUM, kind="batch")
         full = self.mesh.all_gather(stats, cfg.model_axis, stats.dim() - 1,
                                     kind="batch")
+        tracing.count("host_syncs")
         out = np.zeros(full.shape, dtype=np.float64)
         out[..., self.perm] = full.cpu().numpy()
         return out[..., :self.n]

@@ -17,6 +17,12 @@ bytes each rank hands to them, by kind (``Mesh.comm_bytes``):
   result;
 * ``stop``: the one-int whole-world flag a sweep reads each iteration.
 
+While ``torch.profiler`` runs (``repro_torch.tracing``), each wrapper call
+is a ``mesh.collective`` span (its ``kind`` and the ``bytes`` it counts),
+the counter ``comm_bytes.<kind>`` grows by exactly what ``comm_bytes``
+does, and the stop test's read of its flag on the host counts one
+``host_syncs``.
+
 The caller initializes the process group and chooses its backend: NCCL
 for one card a rank, gloo for ranks that share a card or run on the CPU
 (gloo stages CUDA tensors through the host). The mesh never picks one.
@@ -25,13 +31,13 @@ from __future__ import annotations
 
 import math
 import os
-from typing import Dict, Sequence, Tuple, Union
+from typing import Callable, Dict, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, tracing
 
 KINDS = ("gather", "extremum", "tie_sum", "batch", "stop")
 BATCH_AXES = ("pod", "data")  # the axes the source batch is sharded over
@@ -159,38 +165,59 @@ class Mesh:
     def reset_counts(self) -> None:
         self.comm_bytes = dict.fromkeys(KINDS, 0)
 
-    def _count(self, kind: str, x: torch.Tensor) -> None:
-        self.comm_bytes[kind] += x.numel() * x.element_size()
+    def _collective(self, kind: str, nbytes: int):
+        """Count ``nbytes`` under ``kind``; the ``mesh.collective`` span
+        of the wrapper call that hands them to a collective."""
+        self.comm_bytes[kind] += nbytes
+        tracing.count(f"comm_bytes.{kind}", nbytes)
+        return tracing.span("mesh.collective", self.device, kind=kind,
+                            bytes=nbytes)
 
     # -- collectives ---------------------------------------------------------
     def all_gather(self, x: torch.Tensor, axes: Axes, dim: int, *,
                    kind: str = "gather") -> torch.Tensor:
         """The blocks of every rank along ``axes``, concatenated on ``dim``
         in axis order."""
-        parts = [torch.empty_like(x) for _ in range(self.size(axes))]
-        dist.all_gather(parts, x.contiguous(), group=self.group(axes))
-        out = torch.cat(parts, dim=dim)
-        self._count(kind, out)
-        return out
+        size = self.size(axes)
+        with self._collective(kind, size * x.numel() * x.element_size()):
+            parts = [torch.empty_like(x) for _ in range(size)]
+            dist.all_gather(parts, x.contiguous(), group=self.group(axes))
+            return torch.cat(parts, dim=dim)
 
     def all_reduce(self, x: torch.Tensor, axes: Axes, op, *,
                    kind: str) -> torch.Tensor:
         """``x`` reduced by ``op`` over ``axes``; reduces in place when
         ``x`` is contiguous. Use the returned tensor."""
-        x = x.contiguous()
-        dist.all_reduce(x, op=op, group=self.group(axes))
-        self._count(kind, x)
-        return x
+        with self._collective(kind, x.numel() * x.element_size()):
+            x = x.contiguous()
+            dist.all_reduce(x, op=op, group=self.group(axes))
+            return x
 
-    def any_rank(self, flag: torch.Tensor) -> bool:
+    def any_rank(self, flag: torch.Tensor) -> Callable[[], bool]:
         """Whether ``flag`` (a bool tensor) holds anywhere on any rank of
         the world: a sweep's stop test, so that every rank runs the same
         iterations and no subgroup's collective waits on a rank that
-        stopped."""
+        stopped. Starts the test and returns the function that reads its
+        answer on the host; on a card, work enqueued in between runs on
+        while the answer crosses (the read waits for the answer alone)."""
         x = flag.any().to(torch.int32).reshape(1)
-        dist.all_reduce(x, op=dist.ReduceOp.MAX)
-        self._count("stop", x)
-        return bool(x.item())
+        with self._collective("stop", x.element_size()):
+            dist.all_reduce(x, op=dist.ReduceOp.MAX)
+            done = None
+            if x.is_cuda:
+                host = torch.empty(1, dtype=torch.int32, pin_memory=True)
+                host.copy_(x, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(torch.cuda.current_stream(x.device))
+                x = host
+
+        def read() -> bool:
+            tracing.count("host_syncs")
+            if done is not None:
+                done.synchronize()
+            return bool(x.item())
+
+        return read
 
 
 def mesh_from_spec(spec: str, device="cuda") -> Mesh:

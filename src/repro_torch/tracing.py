@@ -25,15 +25,16 @@ event on the current stream at each end; the device interval between the
 two, idle time inside the span included, is read by ``snapshot()``,
 which synchronizes once. On the CPU the device interval is None.
 
-Attributes are host ints the caller holds already: the recorder reads no
-device value and adds no sync. One recorder serves the process, as the
-profiler does, and it holds one profiled stretch: a span or count that
-finds the profiler off marks the stretch closed, and the next one made
-while it runs drops what the last stretch left. So a reader of a finished
-profile reads that profile's spans alone, and the spans of a long-running
-process that is profiled now and then do not pile up. (Two profiles with
-no span or count between them, as a repeating ``torch.profiler.schedule``
-with neither wait nor warm-up steps makes, count as one stretch.)
+Attributes are host ints, or short names, that the caller holds already:
+the recorder reads no device value and adds no sync. One recorder serves
+the process, as the profiler does, and it holds one profiled stretch: a
+span or count that finds the profiler off marks the stretch closed, and
+the next one made while it runs drops what the last stretch left. So a
+reader of a finished profile reads that profile's spans alone, and the
+spans of a long-running process that is profiled now and then do not pile
+up. (Two profiles with no span or count between them, as a repeating
+``torch.profiler.schedule`` with neither wait nor warm-up steps makes,
+count as one stretch.)
 """
 from __future__ import annotations
 
@@ -41,7 +42,7 @@ import dataclasses
 import itertools
 import threading
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Union
 
 import torch
 from torch._C._autograd import _profiler_enabled
@@ -58,7 +59,7 @@ class Span:
     id: int
     parent: Optional[int]
     name: str
-    attrs: Dict[str, int]
+    attrs: Dict[str, Union[int, str]]
     start_ns: int  # host, epoch nanoseconds
     end_ns: int
     device_ms: Optional[float] = None  # None on the CPU

@@ -169,6 +169,7 @@ def _world_cases(rank: int) -> dict:
         mesh.reset_counts()
         ctx.run_moments(src, np.ones(16, bool), nb=16)
         out[("bytes", m)] = (dict(mesh.comm_bytes), ctx.sweeps, ctx.n_pad)
+        out[("traced", m)] = _traced_batch(ctx, src)
     inputs = _spgemm_inputs()
     for key, (shape, names) in SPGEMM_MESHES.items():
         mesh = Mesh(shape, names, device="cpu")
@@ -182,6 +183,22 @@ def _world_cases(rank: int) -> dict:
                            mesh, plan, by_name(name))
                 out[("spgemm", variant, name)] = _host(c)
     return out
+
+
+def _traced_batch(ctx, src):
+    """One batch under the profiler: its ``mesh.relax`` spans' (kind, rows,
+    k, cols) and the batch's sweeps."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch import tracing
+
+    tracing.snapshot()
+    with profile(activities=[ProfilerActivity.CPU]), \
+            record_function("window"):
+        ctx.run_sum(src, np.ones(src.shape[0], bool), nb=src.shape[0])
+    relaxes = [tuple(s.attrs[k] for k in ("kind", "rows", "k", "cols"))
+               for s in tracing.snapshot().named("mesh.relax")]
+    return relaxes, ctx.sweeps
 
 
 def _world_main(rank: int, store: str, results) -> None:
@@ -358,18 +375,20 @@ def test_mesh_plan_json_equals_reference(world, m, kind):
 
 def _closed_form(m, sweeps, n_pad, nb=16):
     """The bytes one moments batch hands the collectives, per rank, from
-    the shapes: per multpath relax, the frontier gather (w, m), the
-    extremum and tie-sum reduces and the re-gather (w, m); per centpath
-    relax (the child count included), the gather (w, p), the extremum and
-    the (p, c) tie sum, the re-gather (w, p, c); per batch the (3, n/M)
-    sum and the (3, n) gather; one int per stop test."""
+    the shapes: per multpath relax, the extremum and tie-sum reduces and
+    the re-gather (w, m); per centpath relax (the child count included),
+    the extremum and the (p, c) tie sum, the re-gather (w, p, c); a
+    frontier gather ((w, m) or (w, p)) for the seed relax, the child count
+    and each stop test (the sweep's last one unused); per batch the
+    (3, n/M) sum and the (3, n) gather; one int per stop test."""
     shape, names = MESHES[m]
     s = dict(zip(names, shape))
     P, D, Mo = s.get("pod", 1), s["data"], s["model"]
     rows = nb // P  # the pod-local rows a relax gathers
     n_mp, n_cp, n_stop = sweeps
     col_m, col_d = rows * n_pad // Mo * 4, rows * n_pad // D * 4
-    return {"gather": n_mp * 4 * col_m + n_cp * 5 * col_m,
+    return {"gather": ((2 + n_stop) * 2 * col_m + n_mp * 2 * col_m
+                       + n_cp * 3 * col_m),
             "extremum": (n_mp + n_cp) * col_d,
             "tie_sum": n_mp * col_d + n_cp * 2 * col_d,
             "batch": 3 * n_pad // Mo * 4 + 3 * n_pad * 4,
@@ -391,6 +410,26 @@ def test_comm_bytes_match_the_closed_form(world, m):
                              dict(zip(names, shape)))
     relax = counted["gather"] + counted["extremum"] + counted["tie_sum"]
     assert 1.0 < relax / model < 4.0
+
+
+@pytest.mark.parametrize("m", sorted(MESHES))
+def test_traced_batch_has_one_mesh_relax_a_relax_on_every_rank(world, m):
+    """Under the profiler each rank records one ``mesh.relax`` span a
+    local product: as many as its sweeps' multpath and centpath relaxes
+    (the seed relax and the child count included), at the pod-local rows
+    and this rank's adjacency block, the same on every rank."""
+    got, _, _ = world
+    relaxes, sweeps = got[0][("traced", m)]
+    shape, names = MESHES[m]
+    s = dict(zip(names, shape))
+    n_pad = got[0][("bytes", m)][2]
+    assert len(relaxes) == sweeps[0] + sweeps[1]
+    assert [r[0] for r in relaxes] == (["mp"] * sweeps[0]
+                                       + ["cp"] * sweeps[1])
+    assert {r[1:] for r in relaxes} == {
+        (16 // s.get("pod", 1), n_pad // s["model"], n_pad // s["data"])}
+    for r in range(1, WORLD):
+        assert got[r][("traced", m)] == (relaxes, sweeps)
 
 
 @pytest.mark.parametrize("variant", VARIANTS)
@@ -625,6 +664,18 @@ def test_sweeps_stop_on_the_whole_world_empty_frontier(small_rmat,
     np.testing.assert_array_equal(
         bounded.run_sum(src, np.ones(16, bool), nb=16), lam)
     _close(lam, brandes_bc(g, sources=src))
+
+
+@pytest.mark.parametrize("flags,want", [([False, False], False),
+                                        ([False, True], True), ([], False)])
+def test_any_rank_reads_the_whole_world_flag_when_asked(one_rank, flags,
+                                                        want):
+    """``any_rank`` starts the stop test and counts its int at once; the
+    function it returns reads the answer."""
+    before = one_rank.comm_bytes["stop"]
+    read = one_rank.any_rank(torch.tensor(flags, dtype=torch.bool))
+    assert one_rank.comm_bytes["stop"] == before + 4
+    assert read() is want
 
 
 @pytest.mark.parametrize("n,d,m", [(12, 2, 2), (16, 4, 2), (24, 2, 3),

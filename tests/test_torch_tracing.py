@@ -16,6 +16,13 @@
   then: a reader of a finished profile reads that profile's alone. The
   child count kernel's ``child_count.launch`` counter follows the same
   rule.
+* On a one-rank gloo mesh, an exact mesh batch records ``batch ⊃ {mfbf,
+  mfbr ⊃ child_count}`` once each (``child_count`` with ``dense`` 0 and
+  ``mesh`` 1), one ``mesh.relax`` a local product with its shape, one
+  ``mesh.collective`` a call of the mesh's wrappers with its kind and
+  bytes; ``comm_bytes.<kind>`` grows by what ``Mesh.comm_bytes`` does, and
+  ``host_syncs`` counts the stop tests and the copy to the host. Off, it
+  records nothing.
 
 The benchmark's readers of these spans are tested beside the benchmark,
 in ``portbench/tests/test_portbench_tracing.py``.
@@ -25,6 +32,7 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 from torch.profiler import ProfilerActivity, profile, record_function
 
 from repro_torch import tracing
@@ -32,6 +40,8 @@ from repro_torch.bc import BCQuery, ExecutionConfig, build_executor, plan, \
     solve
 from repro_torch.core.adjacency import CsrAdj
 from repro_torch.graphs.generators import rmat
+from repro_torch.kernels import ops as kops
+from repro_torch.launch.mesh import Mesh
 
 NB = 16
 _GRAPH = {}
@@ -234,3 +244,136 @@ def test_child_count_launch_counter_keeps_one_stretch():
     profiled(1)
     assert tracing.snapshot().counters == {cc.LAUNCH_COUNTER: 1}
     assert cc.child_count_cuda.launches == before + 5
+
+
+# -- the mesh's distributed step ------------------------------------------------
+@pytest.fixture
+def one_rank_mesh():
+    """A one-rank gloo world and its 1 x 1 mesh, for one test."""
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        yield Mesh((1, 1), ("data", "model"), device="cpu")
+    finally:
+        dist.destroy_process_group()
+
+
+class _MeshCalls:
+    """Sees each call of the mesh's collective wrappers (kind and the
+    bytes it hands over) and each local product's operand shapes."""
+
+    def __init__(self, mesh, monkeypatch):
+        self.collectives, self.products = [], []
+        for name in ("all_gather", "all_reduce", "any_rank"):
+            setattr(mesh, name, self._wrap(mesh, name, getattr(mesh, name)))
+        for name, kind in (("multpath_matmul", "mp"),
+                           ("centpath_matmul", "cp")):
+            monkeypatch.setattr(kops, name,
+                                self._product(kind, getattr(kops, name)))
+
+    def _wrap(self, mesh, name, fn):
+        def call(*args, **kw):
+            before = dict(mesh.comm_bytes)
+            out = fn(*args, **kw)
+            grew = [(k, v - before[k]) for k, v in mesh.comm_bytes.items()
+                    if v != before[k]]
+            self.collectives.append(grew[0])
+            return out
+        return call
+
+    def _product(self, kind, fn):
+        def call(fw, f2, blk, splits=None):
+            self.products.append({"kind": kind, "rows": fw.shape[0],
+                                  "k": blk.shape[0], "cols": blk.shape[1]})
+            return fn(fw, f2, blk, splits)
+        return call
+
+
+def _mesh_batch(mesh, monkeypatch, traced=True):
+    """One exact batch on the mesh, untraced and then (``traced``) under
+    the profiler: (λ untraced, λ, the snapshot, the calls seen, the comm
+    bytes the batch added by kind, the batch's sweeps, the padded n)."""
+    g = _graph()
+    q = BCQuery(mode="exact", n_b=NB,
+                execution=ExecutionConfig(backend="dense"))
+    ex = build_executor(g, plan(g, q, mesh=mesh), mesh=mesh)
+    sources = _batches(g)[0]
+    plain = solve(g, q, executor=ex, sources=sources).lam
+    tracing.snapshot()
+    seen = _MeshCalls(mesh, monkeypatch)
+    before = dict(mesh.comm_bytes)
+    if traced:
+        with profile(activities=[ProfilerActivity.CPU]), \
+                record_function("window"):
+            lam = solve(g, q, executor=ex, sources=sources).lam
+    else:
+        lam = solve(g, q, executor=ex, sources=sources).lam
+    added = {k: v - before[k] for k, v in mesh.comm_bytes.items()
+             if v != before[k]}
+    ctx = ex._context()
+    return (plain, lam, tracing.snapshot(), seen, added, ctx.sweeps,
+            ctx.n_pad)
+
+
+def test_mesh_batch_span_tree(one_rank_mesh, monkeypatch):
+    plain, lam, snap, _, _, _, n_pad = _mesh_batch(one_rank_mesh,
+                                                   monkeypatch)
+    assert np.array_equal(plain, lam)
+    assert _tree(snap) == {
+        ("batch", None), ("mfbf", "batch"), ("mfbr", "batch"),
+        ("child_count", "mfbr"), ("mesh.relax", "mfbf"),
+        ("mesh.relax", "child_count"), ("mesh.relax", "mfbr"),
+        ("mesh.collective", "mfbf"), ("mesh.collective", "child_count"),
+        ("mesh.collective", "mfbr"), ("mesh.collective", "batch")}
+    for name in ("batch", "mfbf", "mfbr", "child_count"):
+        assert len(snap.named(name)) == 1, name
+    assert snap.named("batch")[0].attrs == {"rows": NB, "n": _graph().n}
+    assert snap.named("child_count")[0].attrs == {
+        "rows": NB, "n": n_pad, "dense": 0, "mesh": 1}
+    assert all(s.device_ms is None for s in snap.spans)
+
+
+def test_mesh_relax_span_per_local_product(one_rank_mesh, monkeypatch):
+    _, _, snap, seen, _, sweeps, n_pad = _mesh_batch(one_rank_mesh,
+                                                     monkeypatch)
+    relaxes = [s.attrs for s in snap.named("mesh.relax")]
+    assert relaxes == seen.products
+    assert len(relaxes) == sweeps[0] + sweeps[1]
+    assert [a["kind"] for a in relaxes].count("mp") == sweeps[0]
+    assert all(a["rows"] == NB and a["k"] == a["cols"] == n_pad
+               for a in relaxes)
+
+
+def test_mesh_collective_span_per_wrapper_call(one_rank_mesh, monkeypatch):
+    _, _, snap, seen, added, _, _ = _mesh_batch(one_rank_mesh, monkeypatch)
+    spans = [(s.attrs["kind"], s.attrs["bytes"])
+             for s in snap.named("mesh.collective")]
+    assert spans == seen.collectives
+    by_kind = {}
+    for kind, nbytes in spans:
+        by_kind[kind] = by_kind.get(kind, 0) + nbytes
+    assert by_kind == added
+
+
+def test_mesh_comm_bytes_counters_equal_mesh_comm_bytes(one_rank_mesh,
+                                                        monkeypatch):
+    _, _, snap, _, added, _, _ = _mesh_batch(one_rank_mesh, monkeypatch)
+    assert set(added) == {"gather", "extremum", "tie_sum", "batch", "stop"}
+    assert {k[len("comm_bytes."):]: v for k, v in snap.counters.items()
+            if k.startswith("comm_bytes.")} == added
+
+
+def test_mesh_host_syncs_are_stop_tests_and_copies(one_rank_mesh,
+                                                   monkeypatch):
+    _, _, snap, seen, _, sweeps, _ = _mesh_batch(one_rank_mesh, monkeypatch)
+    stops = [kind for kind, _ in seen.collectives].count("stop")
+    assert stops == sweeps[2] > 0
+    assert snap.counters["host_syncs"] == sweeps[2] + 1  # + λ's copy
+
+
+def test_mesh_batch_untraced_records_nothing(one_rank_mesh, monkeypatch):
+    plain, lam, snap, seen, added, _, _ = _mesh_batch(
+        one_rank_mesh, monkeypatch, traced=False)
+    assert np.array_equal(plain, lam)
+    assert seen.products and seen.collectives and added
+    assert snap == tracing.Snapshot([], {})
