@@ -74,8 +74,11 @@ order; any failed check raises and the script exits non-zero:
       source against ``brandes_bc``; the sparse relax checked and timed
       (with its plain version, ``scatter_reduce_`` and ``index_add_`` and
       its bound) at the full-edge-list MFBF shape and at a bucket-2 MFBr
-      shape. ``max_samples`` is capped if the budget's batches would take
-      more than ``EPOCH_LIMIT_S``;
+      shape; at the bucket-2 shape the CSR arc expansion too, bitwise
+      against its plain version on the card, with its time, the plain
+      version's, ``torch.cummax`` over the bucket's slots and its bound.
+      ``max_samples`` is capped if the budget's batches would take more
+      than ``EPOCH_LIMIT_S``;
    e. ``launch.calibrate`` at scale 14 into a temporary file under
       ``build/``, its rates, and the plan it gives phase 6d's query.
 
@@ -374,6 +377,7 @@ from repro_torch.launch.mesh import Mesh  # noqa: E402
 from repro_torch.kernels import _build, ref  # noqa: E402
 from repro_torch.kernels.centpath_mm import centpath_matmul_cuda  # noqa: E402
 from repro_torch.kernels.child_count import child_count_cuda  # noqa: E402
+from repro_torch.kernels.csr_expand import csr_expand_cuda  # noqa: E402
 from repro_torch.kernels.segment_relax import (LONG_RUN,  # noqa: E402
                                                segment_relax_cuda)
 from repro_torch.kernels.tropical_mm import (BM, BN,  # noqa: E402
@@ -446,13 +450,22 @@ CHILD_COUNT = dict(
     wrapper=child_count_cuda,
     source="src/repro_torch/kernels/csrc/child_count.cu",
     replaces="src/repro/core/monoids.py:186")
+# The CSR arc expansion (phases 6c and 6d, and every bucketed CSR relax).
+# No Pallas kernel stands behind it: it replaces the plain JAX expansion
+# (jax.lax.cummax) of the reference's _expand_edges.
+CSR_EXPAND = dict(
+    wrapper=csr_expand_cuda,
+    source="src/repro_torch/kernels/csrc/csr_expand.cu",
+    replaces="src/repro/core/monoids.py::_expand_edges")
 WRAPPERS = {**{name: k["wrapper"] for name, k in KERNELS.items()},
             "segment_relax": segment_relax_cuda,
-            "child_count": child_count_cuda}
+            "child_count": child_count_cuda,
+            "csr_expand": csr_expand_cuda}
 DENSE_PATH = tuple(KERNELS)  # the kernels each dense run must launch
 # and each single-host dense run (a mesh counts children by a product)
 DENSE_COUNT_PATH = DENSE_PATH + ("child_count",)
 SPARSE_PATH = ("segment_relax",)  # and each COO / CSR run
+CSR_PATH = SPARSE_PATH + ("csr_expand",)  # and each CSR run with a bucket
 
 
 def log(msg: str) -> None:
@@ -968,14 +981,12 @@ def relax_bound(runs, nb: int, n: int, outputs: int):
             "operations" if t_ops >= t_bytes else "bytes", 8.0 * nb * arcs)
 
 
-def relax_shapes(ex, Tw, Tm) -> dict:
-    """Phase 6d's two timing shapes on the scale-18 path, from the first
-    batch's distances: the full-edge-list MFBF relax of a saturated
-    frontier (the COO fallback), and an MFBr relax on capacity bucket 2
-    whose frontier holds about 0.585 of the bucket's slots in live arcs
-    (a scale-18 bucket-2 MFBr relax averaged 2.45 M live arcs of 4,194,304
-    slots; PERF.md §5). Returns name -> (kind, fw, f2, runs)."""
-    adj = ex._adj
+def bucket2_frontier(adj, Tw):
+    """Phase 6d's bucket-2 MFBr frontier on the scale-18 path, from the
+    first batch's distances: columns drawn until their in-arcs fill about
+    0.585 of the bucket's slots (a scale-18 bucket-2 MFBr relax averaged
+    2.45 M live arcs of 4,194,304 slots; PERF.md §5). Returns (fw, fp,
+    (vcap, ecap), live arcs)."""
     n = adj.n
     gen = torch.Generator(device=DEV)
     gen.manual_seed(18)
@@ -989,10 +1000,97 @@ def relax_shapes(ex, Tw, Tm) -> dict:
     fw = torch.where(active, Tw, -INF)
     fp = torch.where(active, torch.rand(Tw.shape, generator=gen,
                                         device=DEV), 0.0)
-    runs = monoids.csr_runs(fw, adj.indptr_in, adj.src_in, adj.w_in, n,
-                            vcap=vcap, ecap=ecap)
+    _, arcs = adj.frontier_counts_cp(monoids.Centpath(fw, fp, None)).tolist()
+    return fw, fp, (vcap, ecap), arcs
+
+
+def relax_shapes(ex, Tw, Tm) -> dict:
+    """Phase 6d's two timing shapes on the scale-18 path: the
+    full-edge-list MFBF relax of a saturated frontier (the COO fallback),
+    and an MFBr relax on capacity bucket 2 (``bucket2_frontier``), its runs
+    built from the live arcs as ``CsrAdj`` builds them. Returns name ->
+    (kind, fw, f2, runs)."""
+    adj = ex._adj
+    fw, fp, (vcap, ecap), arcs = bucket2_frontier(adj, Tw)
+    runs = monoids.csr_runs(fw, adj.indptr_in, adj.src_in, adj.w_in, adj.n,
+                            vcap=vcap, ecap=ecap, arcs=arcs)
     return {"fallback MFBF": ("mp", Tw, Tm, adj.coo.runs_mp),
             "bucket-2 MFBr": ("cp", fw, fp, runs)}
+
+
+def expand_searchsorted(u, offs, indptr, seg, w, n: int, length: int):
+    """The CSR arc expansion in library calls over the live slots alone
+    (``length`` <= ``offs[-1]``): each slot's owner by a binary search of
+    ``offs`` (``torch.searchsorted``), then the same gathers as
+    ``monoids._expand_arcs``. Returns its ``(key, col, w)``."""
+    pos = torch.arange(length, dtype=torch.int64, device=u.device)
+    j = torch.searchsorted(offs, pos, right=True)
+    starts = torch.cat([offs.new_zeros(1), offs[:-1]])
+    eid = indptr[u[j]] + (pos - starts[j])
+    wa = w[eid]
+    alive = torch.isfinite(wa)
+    return torch.where(alive, seg[eid], n), u[j], torch.where(alive, wa, INF)
+
+
+def expand_timing(ex, Tw) -> dict:
+    """Phase 6d: the CSR arc expansion at the bucket-2 MFBr shape
+    (``bucket2_frontier``): the kernel bitwise against its plain version
+    on the card, over the live slots and over all ``ecap`` with the dead
+    ones, and against ``expand_searchsorted`` over the live slots; the
+    times of the kernel over the live slots, of its plain version on the
+    card (``monoids._expand_arcs`` over ``ecap`` slots, what the parent
+    ran), of ``expand_searchsorted`` over the live slots, and of
+    ``torch.cummax`` over ``ecap`` slots alone, the library call that
+    computes the parent's owners; the bound, 32 B a live slot at 3.35
+    TB/s. Returns the numbers of the JSON line."""
+    adj = ex._adj
+    fw, _, (vcap, ecap), arcs = bucket2_frontier(adj, Tw)
+    side = (adj.indptr_in, adj.src_in, adj.w_in)
+    u, offs = monoids._compact_cols(torch.isfinite(fw), adj.indptr_in, vcap)
+    want = monoids._expand_arcs(u, offs, *side, adj.n, ecap)
+    live = csr_expand_cuda(u, offs, *side, adj.n, arcs)
+    full = csr_expand_cuda(u, offs, *side, adj.n, ecap)
+    torch.cuda.synchronize()
+    bsearch = expand_searchsorted(u, offs, *side, adj.n, arcs)
+    for field, x, y, z, b in zip(("key", "col", "w"), live, full, want,
+                                 bsearch):
+        if not (torch.equal(x, z[:arcs]) and torch.equal(y, z)):
+            raise AssertionError(f"6d: csr_expand {field} not bitwise equal "
+                                 "to the plain version")
+        if not torch.equal(b, x):
+            raise AssertionError(f"6d: the searchsorted expansion's {field} "
+                                 "not bitwise equal to csr_expand's")
+    del live, full, want, bsearch
+    before = csr_expand_cuda.launches
+    ms = time_ms(lambda: csr_expand_cuda(u, offs, *side, adj.n, arcs),
+                 iters=50)
+    launches = csr_expand_cuda.launches - before
+    plain_ms = time_ms(lambda: monoids._expand_arcs(u, offs, *side, adj.n,
+                                                    ecap), iters=10, warmup=1)
+    bsearch_ms = time_ms(lambda: expand_searchsorted(u, offs, *side, adj.n,
+                                                     arcs), iters=20)
+    # the cummax's own operand: each column's start scattered to its slot
+    starts = torch.cat([offs.new_zeros(1), offs[:-1]])
+    tgt = torch.where((offs > starts) & (starts < ecap), starts, ecap)
+    owner = torch.zeros(ecap + 1, dtype=torch.int64, device=DEV)
+    owner.scatter_reduce_(0, tgt, torch.arange(u.shape[0], device=DEV),
+                          "amax", include_self=True)
+    owner = owner[:ecap]
+    cummax_ms = time_ms(lambda: torch.cummax(owner, 0), iters=10, warmup=1)
+    bound_ms = 1e3 * 32.0 * arcs / PEAK_BYTES_PER_S
+    owners = int(torch.count_nonzero(offs > starts))
+    log(f"time csr_expand bucket-2 MFBr: {arcs} live arcs of {ecap} slots, "
+        f"{owners} columns with arcs: kernel {ms:.4f} ms ({launches} "
+        f"launches timed), plain {plain_ms:.4f} ms over {ecap} slots, "
+        f"searchsorted over the live slots {bsearch_ms:.4f} ms, "
+        f"torch.cummax over {ecap} slots {cummax_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms (bytes: 32 B a live slot; the columns' 24 B "
+        f"on top), {100 * bound_ms / ms:.1f}% of bound; bitwise equal to "
+        "the plain version and to the searchsorted form on the card")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by="bytes", library_ms=cummax_ms,
+                library_parts_ms={"torch.cummax": cummax_ms,
+                                  "searchsorted_live": bsearch_ms})
 
 
 def relax_timing(ex, Tw, Tm) -> dict:
@@ -1060,7 +1158,7 @@ def phase6c(g12, lam, launches) -> None:
     t0 = time.perf_counter()
     res = solve(g12, BCQuery(), device=DEV)
     dt = time.perf_counter() - t0
-    phase = tally(launches, SPARSE_PATH, "6c")
+    phase = tally(launches, CSR_PATH, "6c")
     occ = res.plan.occupancy
     log(f"6c: unpinned exact solve, rmat scale 12: {res.plan.summary()}; "
         f"{dt:.3f}s, {g12.m * g12.n / dt:,.0f} TEPS (model), launches "
@@ -1095,6 +1193,7 @@ def phase6d(launches, scale: int):
         f"{time.perf_counter() - t0:.3f}s")
     t_batch, Tw, Tm = first_sparse_batch(ex, g, q)
     relax_times = relax_timing(ex, Tw, Tm)
+    relax_times["expand"] = expand_timing(ex, Tw)
     del ex, Tw, Tm
     torch.cuda.empty_cache()
     est = -(-pl.sample_budget // pl.n_b) * t_batch
@@ -1114,7 +1213,7 @@ def phase6d(launches, scale: int):
     t0 = time.perf_counter()
     res = solve(g, q, device=DEV)
     wall = time.perf_counter() - t0
-    phase = tally(launches, SPARSE_PATH, "6d")
+    phase = tally(launches, CSR_PATH, "6d")
     peak = torch.cuda.max_memory_allocated()
     a, occ = res.approx, res.plan.occupancy
     log(f"6d: {res.plan.summary()}: {a.n_samples} samples, {a.n_epochs} "
@@ -4219,6 +4318,11 @@ def main() -> None:
                  **{k: relax_times[k] for k in (
                      "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                      "library_parts_ms")}})
+    rows.append({"name": "csr_expand", "route": "cuda",
+                 "source": CSR_EXPAND["source"],
+                 "replaces": CSR_EXPAND["replaces"],
+                 "launches": launches["csr_expand"], "max_abs_err": 0,
+                 **relax_times["expand"]})
     cc_ms, cc_plain, cc_bound, cc_by = times14["dense_64k"]["child_count"]
     rows.append({"name": "child_count", "route": "cuda",
                  "source": CHILD_COUNT["source"],

@@ -240,7 +240,7 @@ class CsrAdj:
                 vcap, ecap = self.caps[bucket]
                 out = monoids.multpath_relax_csr(F, self.indptr, self.dst,
                                                  self.w, self.n, vcap=vcap,
-                                                 ecap=ecap)
+                                                 ecap=ecap, arcs=arcs)
             else:
                 out = self.coo.relax_mp(F)
         overflow = int(bucket == len(self.caps))
@@ -256,7 +256,8 @@ class CsrAdj:
                 vcap, ecap = self.caps[bucket]
                 out = monoids.centpath_relax_csr(F, self.indptr_in,
                                                  self.src_in, self.w_in,
-                                                 self.n, vcap=vcap, ecap=ecap)
+                                                 self.n, vcap=vcap, ecap=ecap,
+                                                 arcs=arcs)
             else:
                 out = self.coo.relax_cp(F)
         overflow = int(bucket == len(self.caps))

@@ -29,9 +29,10 @@ Three relaxation regimes for each action:
   over a 1-D index expanded as a view, and CPU ``index_add_``).
 * ``*_relax_csr`` — frontier-compacted relaxation: the union-frontier
   columns compact into ``vcap`` slots, only their incident CSR arc ranges
-  expand into ``ecap`` arc slots, grouped into runs by a stable sort, and
-  reduce through the same call, so per-iteration work tracks the maximal
-  frontier.
+  expand into arc slots (on the card by the Hopper kernel
+  ``csr_expand.cu``, as many slots as the frontier has arcs), grouped
+  into runs by a stable sort, and reduce through the same call, so
+  per-iteration work tracks the maximal frontier.
 
 The segment sums add each segment's ties in ascending arc order
 (``arc_runs`` groups the arcs by a stable sort), the order of the
@@ -49,6 +50,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from repro_torch import tracing
+from repro_torch.kernels.csr_expand import csr_expand_cuda
 from repro_torch.kernels.segment_relax import (centpath_segment_relax,
                                                multpath_segment_relax)
 
@@ -309,49 +311,72 @@ def _expand_edges(u: torch.Tensor, offs: torch.Tensor, indptr: torch.Tensor,
     return j, eid, live
 
 
+def _expand_arcs(u: torch.Tensor, offs: torch.Tensor, indptr: torch.Tensor,
+                 seg: torch.Tensor, w: torch.Tensor, n: int, length: int):
+    """The first ``length`` arc slots of the compacted columns as the
+    pre-sort arrays of their runs: ``(key, col, w)``, each (length,). A
+    live slot reads its arc's ``seg`` and ``w`` and its owner's column;
+    dead slots and padding arcs (w = inf, which never reach a tie) take
+    key ``n`` and w = inf. A slot's arrays do not depend on ``length``.
+    The plain version of ``kernels/csrc/csr_expand.cu``."""
+    j, eid, live = _expand_edges(u, offs, indptr, length)
+    wa = w[eid]
+    alive = live & torch.isfinite(wa)
+    return torch.where(alive, seg[eid], n), u[j], torch.where(alive, wa, INF)
+
+
 def csr_runs(Fw: torch.Tensor, indptr: torch.Tensor, seg: torch.Tensor,
-             w: torch.Tensor, n: int, *, vcap: int, ecap: int) -> Runs:
+             w: torch.Tensor, n: int, *, vcap: int, ecap: int,
+             arcs: int) -> Runs:
     """The union frontier's incident arcs, grouped into runs by ``seg``.
 
     The columns active in any row of ``Fw`` compact into ``vcap`` slots,
-    their ``indptr`` arc ranges expand into ``ecap`` arc slots, and each
-    arc reads its slot's column. Dead slots and padding arcs (w = inf,
-    which never reach a tie) go to segment n, past ``offsets[n]``. A
-    ``csr.runs`` span of ``repro_torch.tracing``.
+    their ``indptr`` arc ranges expand into arc slots, and each arc reads
+    its slot's column. ``arcs``: the frontier's incident arcs, as the host
+    read them to pick the bucket; only the first ``min(arcs, ecap)`` slots
+    are expanded, the live ones when the frontier fits (``arcs=ecap``
+    expands every slot, the dead ones after the live). Padding arcs
+    (w = inf, which never reach a tie) and dead slots go to segment n,
+    past ``offsets[n]``, so ``offsets`` and the runs before it do not
+    depend on ``arcs``. CUDA tensors expand through
+    ``kernels/csrc/csr_expand.cu``, CPU tensors through its plain version.
+    A ``csr.runs`` span of ``repro_torch.tracing``.
     """
+    length = min(int(arcs), ecap)
     with tracing.span("csr.runs", Fw.device):
         u, offs = _compact_cols(torch.isfinite(Fw), indptr, vcap)
-        j, eid, live = _expand_edges(u, offs, indptr, ecap)
-        wa = w[eid]
-        alive = live & torch.isfinite(wa)
-        return arc_runs(torch.where(alive, seg[eid], n), u[j],
-                        torch.where(alive, wa, INF), n)
+        expand = csr_expand_cuda if Fw.is_cuda else _expand_arcs
+        return arc_runs(*expand(u, offs, indptr, seg, w, n, length), n)
 
 
 def multpath_relax_csr(F: Multpath, indptr: torch.Tensor, dst: torch.Tensor,
-                       w: torch.Tensor, n: int, *, vcap: int, ecap: int
-                       ) -> Multpath:
+                       w: torch.Tensor, n: int, *, vcap: int, ecap: int,
+                       arcs: int) -> Multpath:
     """Frontier-compacted ``multpath_relax_coo`` over by-src CSR arcs.
 
     Only arcs leaving the union frontier are touched. The result is
     exactly ``multpath_relax_coo`` over the same by-src arcs *provided*
     the frontier fits (active columns <= vcap, incident arcs <= ecap),
     which ``CsrAdj`` guarantees by its bucket pick: arcs from inactive
-    columns hold F.w = inf in every batch row and can never tie.
+    columns hold F.w = inf in every batch row and can never tie. ``arcs``:
+    as ``csr_runs``'s.
     """
     return _multpath_relax_runs(
-        F, csr_runs(F.w, indptr, dst, w, n, vcap=vcap, ecap=ecap))
+        F, csr_runs(F.w, indptr, dst, w, n, vcap=vcap, ecap=ecap,
+                    arcs=arcs))
 
 
 def centpath_relax_csr(F: Centpath, indptr_in: torch.Tensor,
                        src_in: torch.Tensor, w_in: torch.Tensor, n: int, *,
-                       vcap: int, ecap: int) -> Centpath:
+                       vcap: int, ecap: int, arcs: int) -> Centpath:
     """Frontier-compacted ``centpath_relax_coo`` over by-dst (CSC) arcs.
 
     The active side of the Brandes action is the *child* (the arc's dst):
     active child columns compact into slots, each child's in-arc range
     expands, and the candidates reduce to the predecessor side. Equals
-    ``centpath_relax_coo`` under the same capacity proviso.
+    ``centpath_relax_coo`` under the same capacity proviso. ``arcs``: as
+    ``csr_runs``'s.
     """
     return _centpath_relax_runs(
-        F, csr_runs(F.w, indptr_in, src_in, w_in, n, vcap=vcap, ecap=ecap))
+        F, csr_runs(F.w, indptr_in, src_in, w_in, n, vcap=vcap, ecap=ecap,
+                    arcs=arcs))

@@ -11,8 +11,11 @@ on the card and check that the launch counter moves (the sparse-relax
 kernel's are in ``tests/test_torch_segment_relax.py``); the SP-DAG child
 count is held bitwise to ``core.monoids.count_sp_children_dense`` at ragged
 shapes, every split count ``pick_splits`` can give and inputs with ties,
-zero-weight arcs, ±0, rows of +inf and sums that overflow. They skip on a
-host without a card. On the card they run with
+zero-weight arcs, ±0, rows of +inf and sums that overflow; the CSR arc
+expansion bitwise to ``core.monoids._expand_arcs`` (a hub range over many
+tiles, a uniform degree-8 graph, a bucket-2 shape), and its launch counter
+to the ``csr.runs`` spans of a CSR sweep. They skip on a host without a
+card. On the card they run with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels.py
 """
@@ -405,3 +408,98 @@ def test_child_count_checks_on_card(cuda):
         child_count_cuda(tw, torch.zeros(8, 9, device=cuda))
     assert child_count_cuda.launches == before
     assert child_count_cuda(tw[:0], at).shape == (0, 8)
+
+
+# The CSR arc expansion's inputs: a hub whose in-arc range spans 49 of the
+# kernel's 2048-slot tiles, a uniform degree-8 graph (hundreds of owners a
+# tile), and chip_smoke.py phase 6d's bucket-2 MFBr shape at scale 16.
+EXPAND_CASES = ("hub", "uniform", "bucket2")
+
+
+def _expand_inputs(case, dev):
+    """(CsrAdj on ``dev``, an MFBr frontier's Fw, (vcap, ecap), arcs)."""
+    from repro_torch.core.adjacency import csr_adj_from_graph
+    from repro_torch.graphs.generators import rmat, star_graph, \
+        uniform_random
+
+    g = {"hub": lambda: star_graph(100_001, weighted=True, seed=1),
+         "uniform": lambda: uniform_random(65536, 8, seed=1, weighted=True),
+         "bucket2": lambda: rmat(16, 16, seed=2, weighted=True,
+                                 max_weight=100).remove_isolated()[0]}[case]()
+    adj = csr_adj_from_graph(g, n_b=16, device=dev)
+    rng = np.random.default_rng(len(case))
+    deg = np.diff(adj.indptr_in.cpu().numpy())
+    if case == "bucket2":  # about 0.585 of bucket 2's slots in live arcs
+        vcap, ecap = adj.caps[2]
+        order = rng.permutation(g.n)
+        active = np.zeros(g.n, bool)
+        active[order[np.cumsum(deg[order]) <= int(0.585 * ecap)]] = True
+    else:
+        active = rng.random(g.n) < 0.3
+        active[0] = True  # the hub
+    fw = np.where(active & (rng.random((16, g.n)) < 0.7),
+                  rng.integers(0, 50, (16, g.n)), -INF).astype(np.float32)
+    arcs = int(deg[np.isfinite(fw).any(axis=0)].sum())
+    if case != "bucket2":
+        vcap, ecap = g.n, 1 << arcs.bit_length()  # some dead slots
+    return adj, torch.from_numpy(fw).to(dev), (vcap, ecap), arcs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", EXPAND_CASES)
+def test_csr_expand_kernel_matches_plain_on_card(case, cuda):
+    """The kernel's first ``arcs`` slots, and all ``ecap`` with the dead
+    ones, bitwise the plain expansion's on the card; ``csr_runs`` on the
+    card bitwise ``csr_runs`` on the CPU."""
+    from repro_torch.core import monoids
+    from repro_torch.kernels.csr_expand import csr_expand_cuda
+
+    adj, fw, (vcap, ecap), arcs = _expand_inputs(case, cuda)
+    side = (adj.indptr_in, adj.src_in, adj.w_in)
+    u, offs = monoids._compact_cols(torch.isfinite(fw), adj.indptr_in, vcap)
+    want = monoids._expand_arcs(u, offs, *side, adj.n, ecap)
+    before = csr_expand_cuda.launches
+    live = csr_expand_cuda(u, offs, *side, adj.n, arcs)
+    full = csr_expand_cuda(u, offs, *side, adj.n, ecap)
+    torch.cuda.synchronize()
+    assert csr_expand_cuda.launches == before + 2
+    assert int(offs[-1]) == arcs < ecap
+    for x, y, z in zip(live, full, want):
+        assert torch.equal(x, z[:arcs]) and torch.equal(y, z)
+    got = monoids.csr_runs(fw, *side, adj.n, vcap=vcap, ecap=ecap, arcs=arcs)
+    plain = monoids.csr_runs(fw.cpu(), *(t.cpu() for t in side), adj.n,
+                             vcap=vcap, ecap=ecap, arcs=arcs)
+    for x, y in zip(got, plain):
+        assert torch.equal(x.cpu(), y)
+
+
+@pytest.mark.cuda
+def test_csr_expand_counter_equals_csr_runs_spans(cuda):
+    """Under ``torch.profiler`` every bucketed relax of a CUDA ``CsrAdj``
+    sweep launches the expansion once: ``csr_expand.launch`` equals the
+    ``csr.runs`` spans. λ stays the CPU executor's."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch import tracing
+    from repro_torch.bc import BCQuery, ExecutionConfig, build_executor, \
+        plan, solve
+    from repro_torch.graphs.generators import rmat
+    from repro_torch.kernels.csr_expand import LAUNCH_COUNTER
+
+    g = rmat(10, 8, seed=5, weighted=True, max_weight=100).remove_isolated()[0]
+    q = BCQuery(mode="exact", n_b=16,
+                execution=ExecutionConfig(backend="csr"))
+    src = np.arange(16, dtype=np.int32)
+    lam = {}
+    for dev in ("cpu", cuda):
+        ex = build_executor(g, plan(g, q, n_devices=1, device=dev),
+                            device=dev)
+        lam[str(dev)] = solve(g, q, executor=ex, sources=src).lam
+    tracing.snapshot()
+    with profile(activities=[ProfilerActivity.CPU]), \
+            record_function("window"):
+        solve(g, q, executor=ex, sources=src)
+        snap = tracing.snapshot()
+    spans = len(snap.named("csr.runs"))
+    assert spans > 0 and snap.counters.get(LAUNCH_COUNTER) == spans
+    np.testing.assert_allclose(lam["cuda"], lam["cpu"], rtol=1e-5, atol=1e-8)

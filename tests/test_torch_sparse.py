@@ -17,6 +17,10 @@ with numpy.
   ``n_reach`` bitwise, ``S1``/``S2`` within rtol 1e-5; the forced ladders
   ``((1, 1),)`` and ``((1, 2), (4, 8), (16, 64))`` and padding arcs
   bitwise equal to the default build.
+* ``csr_runs`` over the frontier's live arcs alone against the full
+  ``ecap`` expansion: the same ``offsets`` and runs, the relaxes bitwise
+  the reference's (an empty frontier, ``arcs == ecap``, degree-0 columns,
+  padding arcs, a hub range longer than the kernel's tile).
 * An unpinned ``solve`` (the planner picks CSR) against ``brandes_bc`` at
   rtol 1e-5, atol 1e-8; ``launch.calibrate`` writes the port's file, read
   back through ``$REPRO_TORCH_BC_CALIBRATION``.
@@ -43,7 +47,8 @@ from repro_torch.core.brandes_ref import brandes_bc
 from repro_torch.core.mfbc import mfbc_batch_moments, mfbc_batch_moments_traced
 from repro_torch.core.mfbf import TRACE_CAP, mfbf
 from repro_torch.core.mfbr import mfbr
-from repro_torch.graphs.generators import rmat
+from repro_torch.graphs.generators import rmat, star_graph
+from repro_torch.kernels.csr_expand import csr_expand_cuda
 from repro_torch.kernels.ref import segment_sum_ref
 from repro_torch.launch import bc_run, calibrate
 from repro_torch.spgemm import cost_model as tcost
@@ -235,18 +240,25 @@ def test_csr_relaxes_match_reference_bitwise(seed):
     Fc = jmono.Centpath(jnp.asarray(cw), jnp.asarray(cp),
                         jnp.asarray(np.isfinite(cw).astype(np.float32)))
     cap = (g.n, int(r.src.shape[0]))
+    # the frontier's live arcs, as CsrAdj reads them to pick the bucket
+    _, arcs_m = ours.frontier_counts_mp(
+        tmono.Multpath(_t(fw), _t(fm))).tolist()
+    _, arcs_c = ours.frontier_counts_cp(
+        tmono.Centpath(_t(cw), _t(cp), None)).tolist()
+    assert 0 < arcs_m < cap[1] and 0 < arcs_c < cap[1]
     jm = jmono.multpath_relax_csr(Fm, r.indptr, r.dst, r.w, r.n,
                                   vcap=cap[0], ecap=cap[1])
     tm = tmono.multpath_relax_csr(tmono.Multpath(_t(fw), _t(fm)),
                                   ours.indptr, ours.dst, ours.w, ours.n,
-                                  vcap=cap[0], ecap=cap[1])
+                                  vcap=cap[0], ecap=cap[1], arcs=arcs_m)
     _eq(tm.w, jm.w, "w")
     _eq(tm.m, jm.m, "m")
     jc = jmono.centpath_relax_csr(Fc, r.indptr_in, r.src_in, r.w_in, r.n,
                                   vcap=cap[0], ecap=cap[1])
     tc = tmono.centpath_relax_csr(tmono.Centpath(_t(cw), _t(cp), None),
                                   ours.indptr_in, ours.src_in, ours.w_in,
-                                  ours.n, vcap=cap[0], ecap=cap[1])
+                                  ours.n, vcap=cap[0], ecap=cap[1],
+                                  arcs=arcs_c)
     for f in ("w", "p", "c"):
         _eq(getattr(tc, f), getattr(jc, f), f)
     # the container's own bucket pick (and the fallback) give the same
@@ -275,6 +287,95 @@ def test_compaction_matches_reference(vcap, ecap):
     _eq(tlive, jlive)
     _eq(teid, jeid)
     _eq(tj[tlive], _np(jj)[_np(jlive)])
+
+
+def _expansion_case(case):
+    """(graph, pad_multiple, active columns) of one live-prefix case."""
+    if case == "long":  # a hub range longer than the kernel's 2048-slot tile
+        g = star_graph(3000, weighted=True, seed=3)
+        return g, 1, np.array([0, 5, 17, 2999])
+    g = _graph(6, directed=case == "degree0")
+    rng = np.random.default_rng(len(case))
+    cols = np.flatnonzero(rng.random(g.n) < 0.3)
+    if case == "empty":
+        cols = cols[:0]
+    elif case == "degree0":  # columns with no arcs on either side
+        none = np.flatnonzero((g.out_degrees() == 0)
+                              | (np.bincount(g.dst, minlength=g.n) == 0))
+        assert none.size > 0
+        cols = np.union1d(cols, none)
+    elif case == "padding":  # the padding arcs (w = inf) leave n - 1
+        cols = np.union1d(cols, [g.n - 1])
+    return g, 128 if case == "padding" else 1, cols
+
+
+@pytest.mark.parametrize("side", ["mp", "cp"])
+@pytest.mark.parametrize("case",
+                         ["empty", "full", "degree0", "padding", "long"])
+def test_live_prefix_runs_match_the_full_expansion(case, side):
+    """``csr_runs`` given the frontier's arcs expands only those slots:
+    its ``offsets`` and runs before ``offsets[n]`` equal the full ``ecap``
+    expansion's, its tail holds the padding arcs alone, and the relaxes
+    through it stay bitwise the reference's."""
+    g, pad, cols = _expansion_case(case)
+    r, ours = _csr_pair(g, pad_multiple=pad)
+    nb = 3
+    fw, fx = _frontier(g.n, nb, 7, off=INF if side == "mp" else -INF)
+    inactive = np.ones(g.n, bool)
+    inactive[cols] = False
+    fw[:, inactive] = INF if side == "mp" else -INF
+    fx[:, inactive] = 0
+    fw[:, cols] = np.where(np.isfinite(fw[:, cols]), fw[:, cols], 1.0)
+    fx[:, cols] = np.where(fx[:, cols] > 0, fx[:, cols], 0.5)
+    if side == "mp":
+        F = tmono.Multpath(_t(fw), _t(fx))
+        nnz, arcs = ours.frontier_counts_mp(F).tolist()
+        indptr, seg, w = ours.indptr, ours.dst, ours.w
+    else:
+        F = tmono.Centpath(_t(fw), _t(fx), None)
+        nnz, arcs = ours.frontier_counts_cp(F).tolist()
+        indptr, seg, w = ours.indptr_in, ours.src_in, ours.w_in
+    assert nnz == cols.size and (arcs == 0) == (case == "empty")
+    deg = (indptr[1:] - indptr[:-1]).numpy()
+    assert (deg[cols] == 0).any() == (case == "degree0")
+    vcap = g.n
+    ecap = max(arcs, 1) if case == "full" else 2 * arcs + 64
+    full = tmono.csr_runs(F.w, indptr, seg, w, g.n, vcap=vcap, ecap=ecap,
+                          arcs=ecap)
+    live = tmono.csr_runs(F.w, indptr, seg, w, g.n, vcap=vcap, ecap=ecap,
+                          arcs=arcs)
+    assert full.col.shape[0] == ecap and live.col.shape[0] == arcs
+    _eq(live.offsets, full.offsets, "offsets")
+    k = int(full.offsets[-1])
+    for f in ("col", "seg", "w"):
+        _eq(getattr(live, f)[:k], getattr(full, f)[:k], f)
+    assert (live.seg[k:] == g.n).all() and torch.isinf(live.w[k:]).all()
+    assert (k < arcs) == (case == "padding")
+    if side == "mp":
+        got = tmono.multpath_relax_csr(F, indptr, seg, w, g.n, vcap=vcap,
+                                       ecap=ecap, arcs=arcs)
+        want = jmono.multpath_relax_csr(
+            jmono.Multpath(jnp.asarray(fw), jnp.asarray(fx)), r.indptr,
+            r.dst, r.w, r.n, vcap=vcap, ecap=ecap)
+    else:
+        got = tmono.centpath_relax_csr(F, indptr, seg, w, g.n, vcap=vcap,
+                                       ecap=ecap, arcs=arcs)
+        want = jmono.centpath_relax_csr(
+            jmono.Centpath(jnp.asarray(fw), jnp.asarray(fx),
+                           jnp.asarray(np.isfinite(fw).astype(np.float32))),
+            r.indptr_in, r.src_in, r.w_in, r.n, vcap=vcap, ecap=ecap)
+    for f in got._fields:
+        _eq(getattr(got, f), getattr(want, f), f)
+
+
+def test_csr_expand_wrapper_refuses_cpu_tensors():
+    """No quiet fallback: the expansion's wrapper raises before any launch
+    on CPU tensors, and counts no launch."""
+    before = csr_expand_cuda.launches
+    idx = torch.zeros(4, dtype=torch.int64)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        csr_expand_cuda(idx, idx, idx, idx, torch.zeros(4), 3, 2)
+    assert csr_expand_cuda.launches == before
 
 
 def test_gather_rows_matches_reference():
