@@ -361,8 +361,8 @@ from repro_torch.core.bfs_bc import bfs_bc, bfs_bc_batch  # noqa: E402
 from repro_torch.core.brandes_ref import (brandes_bc, cc_ref,  # noqa: E402
                                           closeness_ref, khop_ref)
 from repro_torch.core.mfbc import (mfbc, mfbc_batch,  # noqa: E402
-                                   mfbc_batch_moments,
-                                   mfbc_batch_moments_segmented,
+                                   metric_batch_moments,
+                                   metric_batch_moments_segmented,
                                    segment_fold)
 from repro_torch.core.metrics import components_graph  # noqa: E402
 from repro_torch.core.mfbf import mfbf  # noqa: E402
@@ -690,8 +690,9 @@ def first_batch_check(ex, g, label: str) -> None:
     got = ex.step(src, valid)
     adj = ex._adj
     plain = PlainDenseAdj(adj.a, adj.at, adj.block)
-    want = mfbc_batch_moments(plain, torch.from_numpy(src).to(adj.a.device),
-                              torch.from_numpy(valid).to(adj.a.device))
+    want = metric_batch_moments(plain,
+                                torch.from_numpy(src).to(adj.a.device),
+                                torch.from_numpy(valid).to(adj.a.device))
     want = [x.cpu().numpy() for x in want]
     for what, x, y in zip(("S1", "S2"), got, want):
         np.testing.assert_allclose(x, y, rtol=1e-5, atol=0,
@@ -741,7 +742,7 @@ def own_split_drift(ex, g, label: str) -> None:
     out = []
     for b in (8, ex.n_b):
         sid = np.where(np.arange(b) < 5, 0, 1).astype(np.int32)
-        s = mfbc_batch_moments_segmented(
+        s = metric_batch_moments_segmented(
             adj, torch.from_numpy(rows[:b]).to(DEV),
             torch.ones(b, dtype=torch.bool, device=DEV), sid, n_slots=2)
         out.append([x[0].cpu().numpy() for x in s])
@@ -942,8 +943,8 @@ def first_sparse_batch(ex, g, q) -> float:
     log(f"6d: first batch ({src.size} sources) Tw == scipy dijkstra "
         f"distances, bitwise ({t_dij:.1f}s on the host)")
     valid = torch.ones(src.size, dtype=torch.bool, device=DEV)
-    ladder = mfbc_batch_moments(ex._adj, s, valid)
-    fallback = mfbc_batch_moments(
+    ladder = metric_batch_moments(ex._adj, s, valid)
+    fallback = metric_batch_moments(
         dataclasses.replace(ex._adj, caps=((1, 1),)), s, valid)
     for what, x, y in zip(("S1", "S2", "n_reach"), ladder, fallback):
         if not torch.equal(x, y):
@@ -3834,15 +3835,20 @@ def phase14a(launches, errs: dict) -> dict:
     log(f"14a: both products match their plain versions at {shape} on "
         f"{BC64K_COLS} columns (w, c bitwise; m rtol 1e-6, p rtol 1e-5)")
     del args, f_w, c_w, active
-    Tw, Tm, tr_bf = mfbf(adj, src.long(), trace=True)
+    # one product launch a relax: the launch counts are the iterations
+    launched = multpath_matmul_cuda.launches
+    Tw, Tm = mfbf(adj, src.long())
+    it_bf = multpath_matmul_cuda.launches - launched
     Tw[torch.arange(BC64K_NB, device=DEV), src.long()] = INF
     Tm[torch.arange(BC64K_NB, device=DEV), src.long()] = 1.0
     out["child_count"] = time_child_count(adj, Tw, "14a, MFBF's distances",
                                           plain_iters=1)
-    _, tr_br = mfbr(adj, Tw, Tm, trace=True)
-    log(f"14a: uncapped, MFBF runs {tr_bf.iters} iterations and MFBr "
-        f"{tr_br.iters} on this graph; the cell caps both at {iters} "
-        f"({'truncates' if max(tr_bf.iters, tr_br.iters) > iters else 'no truncation'})")
+    launched = centpath_matmul_cuda.launches
+    mfbr(adj, Tw, Tm)
+    it_br = centpath_matmul_cuda.launches - launched
+    log(f"14a: uncapped, MFBF runs {it_bf} iterations and MFBr "
+        f"{it_br} on this graph; the cell caps both at {iters} "
+        f"({'truncates' if max(it_bf, it_br) > iters else 'no truncation'})")
     del adj, Tw, Tm, a
     torch.cuda.empty_cache()
 

@@ -68,7 +68,7 @@ class LambdaEstimator:
     """Running moments of per-source dependencies, with CIs.
 
     The (Σδ, Σδ²) contract: every batch step feeding this estimator
-    (``core.mfbc.mfbc_batch_moments`` through the executor) returns
+    (``core.mfbc.metric_batch_moments`` through the executor) returns
     per-vertex first and second moments of the *unnormalized* dependency
     ``δ_s(v) ∈ [0, n-2]`` summed over the batch's valid sources:
     ``S1(v) = Σ_s δ_s(v)`` and ``S2(v) = Σ_s δ_s(v)²``. ``update`` folds

@@ -23,7 +23,7 @@ What is ported: the ``BackendSpec`` registry with DENSE, COO and CSR
 registered, and ``SingleHostExecutor`` for every registered metric: the
 sampled metrics through ``step``/``step_sum``/``step_segmented`` (a fused
 batch may mix metrics row-wise, ``metrics=``), the components fixed point
-through ``labels()``, and the CSR occupancy side channel
+through ``labels()``, and the CSR occupancy counts
 (``occupancy_summary``) on the betweenness path; and ``MeshExecutor``,
 the distributed Theorem 5.1 moments step of betweenness on a
 (pod, data, model) mesh of ``torch.distributed`` ranks
@@ -51,9 +51,7 @@ from repro_torch.core.adjacency import (CsrAdj, coo_adj_from_graph,
 from repro_torch.core.dist_bc import MeshBCContext
 from repro_torch.core.mfbc import (metric_batch_moments,
                                    metric_batch_moments_segmented,
-                                   mfbc_batch, mfbc_batch_moments,
-                                   mfbc_batch_moments_segmented,
-                                   mfbc_batch_moments_traced)
+                                   mfbc_batch)
 from repro_torch.core.metrics import components_graph, components_labels
 from repro_torch.graphs.formats import Graph
 from repro_torch.launch.mesh import Mesh
@@ -69,14 +67,12 @@ class BackendSpec:
 
     ``make_adjacency(g, plan, device)`` builds the device-resident
     adjacency the relax steps dispatch on; ``placements`` lists where the
-    backend can run; ``supports_kernel`` says whether it has a kernel
-    route.
+    backend can run.
     """
 
     backend: Backend
     make_adjacency: Callable[[Graph, BCPlan, torch.device], Any]
     placements: Tuple[str, ...] = ("single_host",)
-    supports_kernel: bool = False
 
 
 _BACKEND_REGISTRY: Dict[Backend, BackendSpec] = {}
@@ -108,8 +104,7 @@ register_backend(BackendSpec(
     # not depend on the bucket its batch runs at.
     make_adjacency=lambda g, plan, device: dense_adj_from_graph(
         g, block=plan.block, device=device).for_batches(plan.n_b),
-    placements=("single_host", "mesh"),
-    supports_kernel=True))
+    placements=("single_host", "mesh")))
 
 register_backend(BackendSpec(
     backend=Backend.COO,
@@ -236,7 +231,7 @@ class _ExecutorBase:
              metric: str = "betweenness", hops: int = 0) -> Moments:
         src, val = _pad_batch(sources, valid, self.n_b)
         if metric == "betweenness":
-            return self._moments(src, val)  # the default path, with its trace
+            return self._moments(src, val)
         return self._metric_moments(src, val, metric, hops)
 
     def step_sum(self, sources: np.ndarray, valid: np.ndarray, *,
@@ -311,11 +306,11 @@ class SingleHostExecutor(_ExecutorBase):
 
     ``device``: "cuda" (default; raises without a card) runs the Hopper
     kernels, "cpu" their plain versions. The adjacency is built once, on
-    that device, from the plan's backend via the registry. A ``CsrAdj``
-    adjacency routes betweenness ``step`` and ``step_sum`` through the
-    traced moments entry point and accumulates the frontier occupancy side
-    channel (``occupancy_summary``); other metrics run untraced, as in the
-    reference. ``labels()`` builds a second adjacency, of the zero-weight
+    that device, from the plan's backend via the registry. On a ``CsrAdj``
+    adjacency, betweenness ``step`` and ``step_sum`` add the bucket hits
+    and overflows it counts during the call to ``occupancy_summary``;
+    ``step_segmented``, other metrics and ``labels()`` add nothing, as in
+    the reference. ``labels()`` builds a second adjacency, of the zero-weight
     symmetrized graph, on its first call. Each betweenness call is a
     ``batch`` span of ``repro_torch.tracing``, and each copy of a result to
     the host counts one ``host_syncs``.
@@ -329,38 +324,37 @@ class SingleHostExecutor(_ExecutorBase):
         self.buckets = plan.buckets or bucket_sizes(plan.n_b)
         self._g = g
         self._adj = spec.make_adjacency(g, plan, self.device)
-        # The occupancy trace is collected for the compacting adjacency
-        # only; dense and COO moments run the untraced path.
-        self._trace = isinstance(self._adj, CsrAdj)
         self._occ: Dict[str, Any] = {}
         self._cc_adj = None  # the components structure, built by labels()
 
     def _put(self, x: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(x).to(self.device)
 
-    def _record_occupancy(self, tr_bf, tr_br) -> None:
+    @contextlib.contextmanager
+    def _occupancy(self):
+        """Adds to ``occupancy_summary`` the relaxes a ``CsrAdj`` counts
+        inside the block (one batch)."""
+        adj = self._adj
+        if not isinstance(adj, CsrAdj):
+            yield
+            return
+        hits, overflows = adj.compact_hits, adj.overflows
+        yield
         o = self._occ
         o["batches"] = o.get("batches", 0) + 1
-        o["overflows"] = (o.get("overflows", 0) + tr_bf.overflows
-                          + tr_br.overflows)
-        o["compact_hits"] = (o.get("compact_hits", 0) + tr_bf.compact_hits
-                             + tr_br.compact_hits)
-        o["relax_calls"] = (o.get("relax_calls", 0) + tr_bf.iters
-                            + tr_br.iters)
+        o["overflows"] = o.get("overflows", 0) + adj.overflows - overflows
+        o["compact_hits"] = (o.get("compact_hits", 0) + adj.compact_hits
+                             - hits)
+        o["relax_calls"] = o["compact_hits"] + o["overflows"]
         o["hit_rate"] = o["compact_hits"] / max(o["relax_calls"], 1)
 
     def occupancy_summary(self):
-        """Accumulated frontier-occupancy trace, or None when not traced:
-        ``batches``, ``overflows``, ``compact_hits``, ``relax_calls`` and
-        ``hit_rate`` over every traced batch this executor ran.
+        """Accumulated frontier occupancy, or None before any counted
+        batch (and always on dense and COO): ``batches``, ``overflows``,
+        ``compact_hits``, ``relax_calls`` and ``hit_rate`` over every
+        betweenness ``step`` and ``step_sum`` this executor ran.
         """
         return dict(self._occ) if self._occ else None
-
-    def _traced(self, src, val):
-        s1, s2, nr, tr_bf, tr_br = mfbc_batch_moments_traced(
-            self._adj, self._put(src), self._put(val))
-        self._record_occupancy(tr_bf, tr_br)
-        return s1, s2, nr
 
     def _batch(self, src):
         """The ``batch`` span of one call: uploads, body, fold and the
@@ -369,37 +363,27 @@ class SingleHostExecutor(_ExecutorBase):
                             n=self._adj.n)
 
     def _moments(self, src, val) -> Moments:
-        with self._batch(src):
-            if self._trace:
-                return _host(*self._traced(src, val))
-            return _host(*mfbc_batch_moments(self._adj, self._put(src),
-                                             self._put(val)))
+        with self._batch(src), self._occupancy():
+            return _host(*metric_batch_moments(self._adj, self._put(src),
+                                               self._put(val)))
 
     def _sum(self, src, val) -> np.ndarray:
-        with self._batch(src):
-            if self._trace:
-                # S1 of the moments IS λ_partial: the exact sweep rides the
-                # traced path at the cost of one discarded elementwise
-                # square.
-                lam_b = self._traced(src, val)[0]
-            else:
-                lam_b, _, _ = mfbc_batch(self._adj, self._put(src),
-                                         self._put(val))
+        with self._batch(src), self._occupancy():
+            lam_b, _, _ = mfbc_batch(self._adj, self._put(src),
+                                     self._put(val))
             tracing.count("host_syncs")
             return lam_b.cpu().numpy().astype(np.float64)
 
     def _segmented(self, src, val, sid, n_seg: int) -> Moments:
         with self._batch(src):
-            return _host(*mfbc_batch_moments_segmented(
+            return _host(*metric_batch_moments_segmented(
                 self._adj, self._put(src), self._put(val), sid,
                 n_slots=n_seg))
 
     def _metric_moments(self, src, val, metric: str, hops: int) -> Moments:
-        mids = torch.zeros(src.shape[0], dtype=torch.int32,
-                           device=self.device)
         return _host(*metric_batch_moments(
-            self._adj, self._put(src), self._put(val), mids,
-            kinds=(metric,), hops=int(hops)))
+            self._adj, self._put(src), self._put(val), kinds=(metric,),
+            hops=int(hops)))
 
     def _metric_segmented(self, src, val, sid, mids, kinds, n_seg: int,
                           hops: int) -> Moments:

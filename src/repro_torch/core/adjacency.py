@@ -15,7 +15,9 @@ device.
 incident arcs) of the frontier: ``mfbf``/``mfbr`` read those two counts
 with the frontier count they already take each iteration
 (``frontier_counts_mp``/``_cp``), so a sweep still syncs once per
-iteration. The reference picks on the device with ``lax.switch``.
+iteration. The reference picks on the device with ``lax.switch``. Each
+pick counts the relax as a bucket hit or an overflow to the full edge list
+(``compact_hits``, ``overflows``).
 """
 from __future__ import annotations
 
@@ -174,7 +176,10 @@ class CsrAdj:
     the *union-column* frontier (vertices active in any batch row) and its
     incident arcs, runs the smallest bucket that fits, and falls back to
     the full-edge-list COO relax when every bucket overflows. Results never
-    depend on the ladder, only the work does.
+    depend on the ladder, only the work does. ``compact_hits`` and
+    ``overflows`` count the relaxes a bucket served and those that fell
+    back, over the adjacency's life (``SingleHostExecutor`` reads their
+    growth across a batch).
     """
 
     indptr: torch.Tensor  # (n+1,) int64 row pointers into the by-src arrays
@@ -187,6 +192,9 @@ class CsrAdj:
     n_static: int
     caps: Tuple[Tuple[int, int], ...]
     coo: Optional[CooAdj] = None  # the by-src arcs: fallback, child count
+    compact_hits: int = dataclasses.field(default=0, init=False,
+                                          compare=False)
+    overflows: int = dataclasses.field(default=0, init=False, compare=False)
 
     def __post_init__(self):
         if self.coo is None:
@@ -200,10 +208,13 @@ class CsrAdj:
         return self.coo.gather_rows(sources)
 
     def _pick_bucket(self, nnz: int, arcs: int) -> int:
-        """The smallest bucket that fits, ``len(caps)`` if none does."""
+        """The smallest bucket that fits, ``len(caps)`` if none does; counts
+        the relax as a hit or an overflow."""
         for i, (vcap, ecap) in enumerate(self.caps):
             if nnz <= vcap and arcs <= ecap:
+                self.compact_hits += 1
                 return i
+        self.overflows += 1
         return len(self.caps)
 
     @staticmethod

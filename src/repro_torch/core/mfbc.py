@@ -4,11 +4,10 @@
 batches. Each batch runs MFBF, the t = s self-mask and MFBr on the device;
 the batch loop and the float64 λ accumulator live on the host.
 
-Entry points: the exact sweep (``mfbc``, ``mfbc_batch``), the sampled
-path's moments (``mfbc_batch_moments``, ``mfbc_batch_moments_segmented``),
-the traced moments (``mfbc_batch_moments_traced``) and their
-metric-generic forms (``metric_batch_moments``,
-``metric_batch_moments_segmented``), on the dense, COO and CSR backends.
+Entry points: the exact sweep (``mfbc``, ``mfbc_batch``) and the sampled
+path's moments, of the whole batch (``metric_batch_moments``) or summed
+per request slot (``metric_batch_moments_segmented``), on the dense, COO
+and CSR backends. All three run one batch body, ``_metric_contrib``.
 """
 from __future__ import annotations
 
@@ -23,24 +22,43 @@ from repro_torch.core import mfbr as _mfbr
 from repro_torch.core.adjacency import (coo_adj_from_graph,
                                         csr_adj_from_graph,
                                         dense_adj_from_graph)
-from repro_torch.core.monoids import INF, Multpath
+from repro_torch.core.monoids import INF
 from repro_torch.graphs.formats import Graph
 
 
-def _batch_contrib(adj, sources: torch.Tensor, valid: torch.Tensor, *,
-                   iterate: str = "while", max_iters_bf: int = 0,
-                   max_iters_br: int = 0, trace: bool = False):
-    """Shared Algorithm 3 batch body: per-source contributions δ_s(v).
-
-    Returns (contrib, mask, Tw, Tm, traces) with contrib (nb, n) zeroed on
-    unreachable/padding entries; ``traces`` is the (MFBF, MFBr)
-    ``SweepTrace`` pair with ``trace=True`` (the sweeps then run their
-    while loops), else None.
+def _bounded_mfbf(adj, sources: torch.Tensor, *, hops: int):
+    """MFBF stopped after ``hops - 1`` iterations (Lemma 4.1: T is then
+    exactly the ≤ ``hops``-edge shortest paths; finiteness is hop-bounded
+    reachability). ``hops=1`` runs none: T is the direct-edge row gather.
     """
-    traces = None
-    if trace:
-        Tw, Tm, tr_bf = _mfbf.mfbf(adj, sources, max_iters=max_iters_bf,
-                                   trace=True)
+    if hops == 1:
+        Tw = adj.gather_rows(sources)
+        return Tw, torch.isfinite(Tw).to(Tw.dtype)
+    return _mfbf.mfbf(adj, sources, max_iters=hops - 1)
+
+
+def _metric_contrib(adj, sources: torch.Tensor, valid: torch.Tensor,
+                    metric_ids: Optional[torch.Tensor], *, kinds, hops: int,
+                    iterate: str, max_iters_bf: int, max_iters_br: int):
+    """The Algorithm 3 batch body: (contrib, mask, Tw, Tm).
+
+    Every sampled metric shares MFBF's forward sweep and the t = s
+    self-mask; they differ only in the final elementwise contribution
+    formula (and, for betweenness, the extra MFBr backward sweep).
+    ``kinds`` is the tuple of metric names present in the batch and
+    ``metric_ids`` tags each row with an index into it (None: every row
+    is ``kinds[0]``), so a fused batch mixes metrics row-wise over one
+    relax sequence. ``contrib`` (nb, n) is zero on unreachable and
+    padding entries. Bounded (khop) and unbounded sweeps never mix — the
+    serving layer groups fusion by ``core.metrics.fuse_group``.
+    """
+    if "khop" in kinds:
+        if not all(k == "khop" for k in kinds):
+            raise ValueError("hop-bounded sweeps cannot fuse with "
+                             f"unbounded metrics: {kinds}")
+        if hops < 1:
+            raise ValueError(f"khop requires hops >= 1, got {hops}")
+        Tw, Tm = _bounded_mfbf(adj, sources, hops=hops)
     else:
         Tw, Tm = _mfbf.mfbf(adj, sources, iterate=iterate,
                             max_iters=max_iters_bf)
@@ -50,15 +68,26 @@ def _batch_contrib(adj, sources: torch.Tensor, valid: torch.Tensor, *,
     rows = torch.arange(sources.shape[0], device=Tw.device)
     Tw[rows, sources.long()] = INF
     Tm[rows, sources.long()] = 1.0
-    if trace:
-        Zp, tr_br = _mfbr.mfbr(adj, Tw, Tm, max_iters=max_iters_br,
-                               trace=True)
-        traces = (tr_bf, tr_br)
-    else:
+    Zp = None
+    if "betweenness" in kinds:
         Zp = _mfbr.mfbr(adj, Tw, Tm, iterate=iterate, max_iters=max_iters_br)
+    # after MFBr, so that the (nb, n) mask is not live at its child count's
+    # peak
     mask = torch.isfinite(Tw) & valid[:, None]
-    contrib = torch.where(mask, Zp * Tm, 0.0)
-    return contrib, mask, Tw, Tm, traces
+
+    def one(kind):
+        if kind == "betweenness":
+            return Zp * Tm
+        if kind == "closeness":
+            return Tw  # farness: δ_s(v) = τ(s, v) where finite
+        if kind == "khop":
+            return torch.ones_like(Tw)  # reach indicator within the bound
+        raise ValueError(f"metric {kind!r} has no sampled batch body")
+
+    contrib = one(kinds[0])
+    for i, kind in enumerate(kinds[1:], start=1):
+        contrib = torch.where((metric_ids == i)[:, None], one(kind), contrib)
+    return torch.where(mask, contrib, 0.0), mask, Tw, Tm
 
 
 def mfbc_batch(adj, sources: torch.Tensor, valid: torch.Tensor, *,
@@ -69,45 +98,61 @@ def mfbc_batch(adj, sources: torch.Tensor, valid: torch.Tensor, *,
 
     valid: (nb,) bool — False for padding sources (contribute nothing).
     """
-    contrib, _, Tw, Tm, _ = _batch_contrib(
-        adj, sources, valid, iterate=iterate, max_iters_bf=max_iters_bf,
+    contrib, _, Tw, Tm = _metric_contrib(
+        adj, sources, valid, None, kinds=("betweenness",), hops=0,
+        iterate=iterate, max_iters_bf=max_iters_bf,
         max_iters_br=max_iters_br)
     return contrib.sum(dim=0), Tw, Tm
 
 
-def mfbc_batch_moments(adj, sources: torch.Tensor, valid: torch.Tensor, *,
-                       iterate: str = "while", max_iters_bf: int = 0,
-                       max_iters_br: int = 0
-                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+def metric_batch_moments(adj, sources: torch.Tensor, valid: torch.Tensor,
+                         metric_ids: Optional[torch.Tensor] = None, *,
+                         kinds=("betweenness",), hops: int = 0,
+                         iterate: str = "while", max_iters_bf: int = 0,
+                         max_iters_br: int = 0
+                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One Algorithm 3 batch returning per-vertex dependency moments.
 
     Returns (S1, S2, n_reach) where, over the batch's valid sources s,
     ``S1(v) = Σ_s δ_s(v)``, ``S2(v) = Σ_s δ_s(v)²`` and
-    ``n_reach(v) = Σ_s [v reachable from s]`` (int32). S1 is
-    ``mfbc_batch``'s λ_partial with the rows added in row order (``_rows``);
-    S2 feeds the confidence intervals of the sampled estimator
-    (``repro_torch.approx``).
+    ``n_reach(v) = Σ_s [v reachable from s]`` (int32), each row's
+    contribution δ_s being ``kinds[metric_ids[row]]``'s. The rows are
+    added in row order (``_rows``); S2 feeds the confidence intervals of
+    the sampled estimator (``repro_torch.approx``).
     """
-    contrib, mask, _, _, _ = _batch_contrib(
-        adj, sources, valid, iterate=iterate, max_iters_bf=max_iters_bf,
+    contrib, mask, _, _ = _metric_contrib(
+        adj, sources, valid, metric_ids, kinds=kinds, hops=hops,
+        iterate=iterate, max_iters_bf=max_iters_bf,
         max_iters_br=max_iters_br)
     return _rows(contrib, mask)
 
 
-def mfbc_batch_moments_traced(adj, sources: torch.Tensor,
-                              valid: torch.Tensor, *, max_iters_bf: int = 0,
-                              max_iters_br: int = 0):
-    """``mfbc_batch_moments`` plus the per-iteration occupancy traces.
+def metric_batch_moments_segmented(adj, sources: torch.Tensor,
+                                   valid: torch.Tensor, slot_ids: np.ndarray,
+                                   metric_ids: Optional[torch.Tensor] = None,
+                                   *, n_slots: int, kinds=("betweenness",),
+                                   hops: int = 0, iterate: str = "while",
+                                   max_iters_bf: int = 0,
+                                   max_iters_br: int = 0
+                                   ) -> Tuple[torch.Tensor, torch.Tensor,
+                                              torch.Tensor]:
+    """One Algorithm 3 batch, moments summed per request slot.
 
-    Returns (S1, S2, n_reach, trace_bf, trace_br), the traces being the
-    ``repro_torch.core.mfbf.SweepTrace`` of the forward (MFBF) and backward
-    (MFBr) sweeps. The moments come from the same relaxation sequence as
-    the untraced while loop, so they are bitwise unchanged.
+    The cross-request fusion primitive: a fused batch packs sources of
+    several concurrent queries (and metrics, ``metric_ids``), tagged per
+    row with ``slot_ids[s] ∈ [0, n_slots)`` (host array; padding rows
+    carry ``n_slots``, a dump segment that is dropped). Returns (S1, S2,
+    n_reach), each ``(n_slots, n)``, where row j holds what
+    ``metric_batch_moments`` returns for slot j's rows alone:
+    ``segment_fold`` adds each slot's rows in row order, and on the card
+    the adjacency's fixed split count (``DenseAdj.for_batches``) keeps
+    every row's contribution independent of the batch size.
     """
-    contrib, mask, _, _, (tr_bf, tr_br) = _batch_contrib(
-        adj, sources, valid, max_iters_bf=max_iters_bf,
-        max_iters_br=max_iters_br, trace=True)
-    return (*_rows(contrib, mask), tr_bf, tr_br)
+    contrib, mask, _, _ = _metric_contrib(
+        adj, sources, valid, metric_ids, kinds=kinds, hops=hops,
+        iterate=iterate, max_iters_bf=max_iters_bf,
+        max_iters_br=max_iters_br)
+    return _fold_moments(contrib, mask, slot_ids, n_slots)
 
 
 def segment_fold(x: torch.Tensor, slot_ids: np.ndarray,
@@ -148,30 +193,6 @@ def segment_fold(x: torch.Tensor, slot_ids: np.ndarray,
     return out[:n_slots]
 
 
-def mfbc_batch_moments_segmented(adj, sources: torch.Tensor,
-                                 valid: torch.Tensor, slot_ids: np.ndarray,
-                                 *, n_slots: int, iterate: str = "while",
-                                 max_iters_bf: int = 0, max_iters_br: int = 0
-                                 ) -> Tuple[torch.Tensor, torch.Tensor,
-                                            torch.Tensor]:
-    """One Algorithm 3 batch, moments summed per request slot.
-
-    The cross-request fusion primitive: a fused batch packs sources of
-    several concurrent queries, tagged per row with ``slot_ids[s] ∈
-    [0, n_slots)`` (host array; padding rows carry ``n_slots``, a dump
-    segment that is dropped). Returns (S1, S2, n_reach), each
-    ``(n_slots, n)``, where row j holds what this function returns for
-    slot j's rows alone: ``segment_fold`` adds each slot's rows in row
-    order, and on the card the adjacency's fixed split count
-    (``DenseAdj.for_batches``) keeps every row's contribution independent
-    of the batch size.
-    """
-    contrib, mask, _, _, _ = _batch_contrib(
-        adj, sources, valid, iterate=iterate, max_iters_bf=max_iters_bf,
-        max_iters_br=max_iters_br)
-    return _fold_moments(contrib, mask, slot_ids, n_slots)
-
-
 def _fold_moments(contrib: torch.Tensor, mask: torch.Tensor,
                   slot_ids: np.ndarray, n_slots: int):
     """Per-slot (Σδ, Σδ², n_reach) of a batch's contributions."""
@@ -191,122 +212,6 @@ def _rows(contrib: torch.Tensor, mask: torch.Tensor):
     s1, s2, nr = _fold_moments(contrib, mask,
                                np.zeros(contrib.shape[0], np.int64), 1)
     return s1[0], s2[0], nr[0]
-
-
-# ==========================================================================
-# Metric-generic batch bodies (the MetricSpec sweep substrate).
-#
-# Every sampled metric shares MFBF's forward sweep and the t = s self-mask;
-# they differ only in the final elementwise contribution formula (and, for
-# betweenness, the extra MFBr backward sweep). ``kinds`` is the tuple of
-# metric names present in the batch and ``metric_ids`` tags each row with
-# an index into it, so a fused batch mixes metrics row-wise over one relax
-# sequence. The default path keeps calling the betweenness functions above.
-# ==========================================================================
-
-
-def _bounded_mfbf(adj, sources: torch.Tensor, *, hops: int):
-    """MFBF stopped after ``hops - 1`` iterations (Lemma 4.1: T is then
-    exactly the ≤ ``hops``-edge shortest paths; finiteness is hop-bounded
-    reachability). ``hops=1`` runs none: T is the direct-edge row gather.
-
-    One host read before each iteration: the frontier's population (an
-    empty frontier ends the loop early, which changes no value) and, on a
-    ``CsrAdj``, the counts its relax picks a bucket from, in the same copy.
-    """
-    Tw0 = adj.gather_rows(sources)
-    T = F = Multpath(Tw0, torch.isfinite(Tw0).to(Tw0.dtype))
-    probe = getattr(adj, "frontier_counts_mp", None)
-    count = _mfbf._frontier_active(F).sum()
-    for _ in range(hops - 1):
-        nact, hint = _mfbf.read_counts(count, F, probe)
-        if nact == 0:
-            break
-        T, F, count, _ = _mfbf._step(adj, T, F, hint)
-    return T.w, T.m
-
-
-def _metric_contrib(adj, sources: torch.Tensor, valid: torch.Tensor,
-                    metric_ids: torch.Tensor, *, kinds, hops: int,
-                    iterate: str, max_iters_bf: int, max_iters_br: int):
-    """Metric-generic Algorithm 3 batch body: (contrib, mask).
-
-    kinds: tuple of metric names; rows select theirs via ``metric_ids``.
-    Bounded (khop) and unbounded sweeps never mix — the serving layer
-    groups fusion by ``core.metrics.fuse_group``.
-    """
-    if "khop" in kinds:
-        if not all(k == "khop" for k in kinds):
-            raise ValueError("hop-bounded sweeps cannot fuse with "
-                             f"unbounded metrics: {kinds}")
-        if hops < 1:
-            raise ValueError(f"khop requires hops >= 1, got {hops}")
-        Tw, Tm = _bounded_mfbf(adj, sources, hops=hops)
-    else:
-        Tw, Tm = _mfbf.mfbf(adj, sources, iterate=iterate,
-                            max_iters=max_iters_bf)
-    rows = torch.arange(sources.shape[0], device=Tw.device)
-    Tw[rows, sources.long()] = INF
-    Tm[rows, sources.long()] = 1.0
-    mask = torch.isfinite(Tw) & valid[:, None]
-    Zp = None
-    if "betweenness" in kinds:
-        Zp = _mfbr.mfbr(adj, Tw, Tm, iterate=iterate, max_iters=max_iters_br)
-
-    def one(kind):
-        if kind == "betweenness":
-            return Zp * Tm
-        if kind == "closeness":
-            return Tw  # farness: δ_s(v) = τ(s, v) where finite
-        if kind == "khop":
-            return torch.ones_like(Tw)  # reach indicator within the bound
-        raise ValueError(f"metric {kind!r} has no sampled batch body")
-
-    contrib = one(kinds[0])
-    for i, kind in enumerate(kinds[1:], start=1):
-        contrib = torch.where((metric_ids == i)[:, None], one(kind), contrib)
-    return torch.where(mask, contrib, 0.0), mask
-
-
-def metric_batch_moments(adj, sources: torch.Tensor, valid: torch.Tensor,
-                         metric_ids: torch.Tensor, *, kinds, hops: int = 0,
-                         iterate: str = "while", max_iters_bf: int = 0,
-                         max_iters_br: int = 0
-                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """``mfbc_batch_moments`` generalized over per-row metrics.
-
-    Returns (S1, S2, n_reach) over the batch's valid sources, where each
-    row's contribution formula is ``kinds[metric_ids[row]]``'s.
-    """
-    contrib, mask = _metric_contrib(adj, sources, valid, metric_ids,
-                                    kinds=kinds, hops=hops, iterate=iterate,
-                                    max_iters_bf=max_iters_bf,
-                                    max_iters_br=max_iters_br)
-    return _rows(contrib, mask)
-
-
-def metric_batch_moments_segmented(adj, sources: torch.Tensor,
-                                   valid: torch.Tensor, slot_ids: np.ndarray,
-                                   metric_ids: torch.Tensor, *, kinds,
-                                   n_slots: int, hops: int = 0,
-                                   iterate: str = "while",
-                                   max_iters_bf: int = 0,
-                                   max_iters_br: int = 0
-                                   ) -> Tuple[torch.Tensor, torch.Tensor,
-                                              torch.Tensor]:
-    """``mfbc_batch_moments_segmented`` generalized over per-row metrics.
-
-    The cross-metric fusion primitive: a closeness epoch and a BC forward
-    sweep share one relax sequence, each slot's rows selecting their own
-    contribution formula. ``segment_fold`` adds each slot's rows in row
-    order, so slot j's statistics are bitwise those of its rows alone
-    under the same sweep structure.
-    """
-    contrib, mask = _metric_contrib(adj, sources, valid, metric_ids,
-                                    kinds=kinds, hops=hops, iterate=iterate,
-                                    max_iters_bf=max_iters_bf,
-                                    max_iters_br=max_iters_br)
-    return _fold_moments(contrib, mask, slot_ids, n_slots)
 
 
 def mfbc(g: Graph, *, n_b: Optional[int] = None, backend: str = "dense",

@@ -22,7 +22,6 @@ The caller must mask the self-destination ``T(s, s̄(s)) = (∞, 1)`` first
 As in ``mfbf``, ``iterate="while"`` reads one count per round from the
 device: the population of the next frontier, taken from the ``newly`` mask
 (with a ``CsrAdj``, in the same copy, the counts of its next bucket pick).
-``trace=True`` also returns the sweep's ``SweepTrace``.
 
 The back-propagation is an ``mfbr`` span of ``repro_torch.tracing``, and
 the child count its first child span, ``child_count``, with the count's
@@ -35,7 +34,7 @@ import torch
 
 from repro_torch import tracing
 from repro_torch.core.adjacency import DenseAdj
-from repro_torch.core.mfbf import empty_trace, read_counts, record
+from repro_torch.core.mfbf import read_counts
 from repro_torch.core.monoids import INF, Centpath
 
 
@@ -47,26 +46,25 @@ def _seed_frontier(Tw, Tm, Zp, newly):
 
 def _step(adj, Tw, Tm, finite, state, hint):
     """One back-prop round on ``state = (Zp, c, done, F)``; returns the new
-    state, the population of the next frontier (vertices newly retired
-    this round) and the relax's ``RelaxStats`` (None without compaction).
+    state and the population of the next frontier (vertices newly retired
+    this round).
     """
     Zp, c, done, F = state
     # P: contributions shifted back along arcs
     relax = getattr(adj, "relax_cp_stats", None)
-    P, stats = (adj.relax_cp(F), None) if relax is None else relax(F, hint)
+    P = adj.relax_cp(F) if relax is None else relax(F, hint)[0]
     contrib = (P.w == Tw) & finite & (P.c > 0)
     Zp = Zp + torch.where(contrib, P.p, 0.0)
     c = c - torch.where(contrib, P.c.to(c.dtype), 0)
     newly = finite & (c == 0) & ~done
     F = _seed_frontier(Tw, Tm, Zp, newly)
-    return (Zp, c, done | newly, F), newly.sum(), stats
+    return (Zp, c, done | newly, F), newly.sum()
 
 
 def mfbr(adj, Tw: torch.Tensor, Tm: torch.Tensor, *, iterate: str = "while",
-         max_iters: int = 0, trace: bool = False):
+         max_iters: int = 0):
     """Back-propagate centrality factors. Returns ``Zp`` with
-    ``Zp[s, v] = ζ(s, v)`` (0 for unreachable/masked vertices).
-    With ``trace=True``: (Zp, SweepTrace) — see ``repro_torch.core.mfbf``."""
+    ``Zp[s, v] = ζ(s, v)`` (0 for unreachable/masked vertices)."""
     if iterate not in ("while", "fori"):
         raise ValueError(f"iterate must be 'while' or 'fori', got {iterate!r}")
     with tracing.span("mfbr", Tw.device):
@@ -81,18 +79,15 @@ def mfbr(adj, Tw: torch.Tensor, Tm: torch.Tensor, *, iterate: str = "while",
         seed = finite & (c0 == 0)
         state = (Zp0, c0, seed, _seed_frontier(Tw, Tm_safe, Zp0, seed))
 
-        if iterate == "fori" and not trace:
+        if iterate == "fori":
             for _ in range(bound):
-                state, _, _ = _step(adj, Tw, Tm_safe, finite, state, None)
+                state, _ = _step(adj, Tw, Tm_safe, finite, state, None)
             return state[0]
         probe = getattr(adj, "frontier_counts_cp", None)
-        tr = empty_trace()
         nact, hint = read_counts(seed.sum(), state[3], probe)
         it = 0
         while nact > 0 and it < bound:
-            state, count, stats = _step(adj, Tw, Tm_safe, finite, state, hint)
-            if trace:
-                tr = record(tr, it, nact, stats)
+            state, count = _step(adj, Tw, Tm_safe, finite, state, hint)
             nact, hint = read_counts(count, state[3], probe)
             it += 1
-        return (state[0], tr) if trace else state[0]
+        return state[0]

@@ -24,8 +24,8 @@ from repro.graphs.generators import erdos_renyi, rmat
 import repro_torch.approx.driver as tdrv
 import repro_torch.approx.sampling as tsam
 from repro_torch.core.adjacency import dense_adj_from_arrays
-from repro_torch.core.mfbc import (mfbc_batch_moments,
-                                   mfbc_batch_moments_segmented,
+from repro_torch.core.mfbc import (metric_batch_moments,
+                                   metric_batch_moments_segmented,
                                    segment_fold)
 
 
@@ -228,8 +228,8 @@ def _close(ours, ref):
 def test_moments_step_matches_reference(gname, nb, k):
     g, ref, adj = _pair(gname)
     src, valid = _batch(g, nb, k, seed=nb + k)
-    ours = mfbc_batch_moments(adj, torch.from_numpy(src),
-                              torch.from_numpy(valid))
+    ours = metric_batch_moments(adj, torch.from_numpy(src),
+                                torch.from_numpy(valid))
     _close(ours, jax_moments(ref, jnp.asarray(src), jnp.asarray(valid)))
     assert float(ours[0].abs().max()) > 0
 
@@ -240,9 +240,9 @@ def test_segmented_step_matches_reference(gname):
     src, valid = _batch(g, 16, 13, seed=3)
     sid = np.array([0, 0, 2, 1, 2, 2, 0, 1, 1, 1, 0, 2, 2, 3, 3, 3],
                    np.int32)  # rows 13-15 pad: the dump slot 3
-    ours = mfbc_batch_moments_segmented(adj, torch.from_numpy(src),
-                                        torch.from_numpy(valid), sid,
-                                        n_slots=3)
+    ours = metric_batch_moments_segmented(adj, torch.from_numpy(src),
+                                          torch.from_numpy(valid), sid,
+                                          n_slots=3)
     _close(ours, jax_segmented(ref, jnp.asarray(src), jnp.asarray(valid),
                                jnp.asarray(sid), n_slots=3))
     assert ours[0].shape == (3, g.n)

@@ -10,9 +10,10 @@ with numpy.
   CSR relaxes give ``w``, ``m``, ``p``, ``c`` and the child counts bitwise
   equal to the reference's, with non-integer ``m`` and ``p`` whose sums
   would change in the last bits in another order.
-* ``mfbf``/``mfbr`` with ``trace=True``: ``SweepTrace`` fields equal the
-  reference's; ``occupancy_summary`` equals the reference executor's
-  in the accumulated counts it keeps.
+* ``CsrAdj``'s bucket hits and overflows after ``mfbf``/``mfbr`` equal
+  the reference's ``SweepTrace`` counts; ``occupancy_summary`` equals the
+  reference executor's in the accumulated counts it keeps, and grows on
+  betweenness ``step``/``step_sum`` only.
 * CSR against dense and COO: ``Tw``, ``Tm``, the child counts and
   ``n_reach`` bitwise, ``S1``/``S2`` within rtol 1e-5; the forced ladders
   ``((1, 1),)`` and ``((1, 2), (4, 8), (16, 64))`` and padding arcs
@@ -25,6 +26,7 @@ with numpy.
   rtol 1e-5, atol 1e-8; ``launch.calibrate`` writes the port's file, read
   back through ``$REPRO_TORCH_BC_CALIBRATION``.
 """
+import dataclasses
 import json
 
 import jax
@@ -44,8 +46,8 @@ import repro_torch.bc as tbc
 import repro_torch.core.adjacency as tadj
 import repro_torch.core.monoids as tmono
 from repro_torch.core.brandes_ref import brandes_bc
-from repro_torch.core.mfbc import mfbc_batch_moments, mfbc_batch_moments_traced
-from repro_torch.core.mfbf import TRACE_CAP, mfbf
+from repro_torch.core.mfbc import mfbc_batch, metric_batch_moments
+from repro_torch.core.mfbf import mfbf
 from repro_torch.core.mfbr import mfbr
 from repro_torch.graphs.generators import rmat, star_graph
 from repro_torch.kernels.csr_expand import csr_expand_cuda
@@ -402,52 +404,111 @@ def test_containers_match_reference_arrays():
         _eq(getattr(oc, f), getattr(rc, f), f)
 
 
-# ------------------------------------------------------ traced sweeps
+# ------------------------------------------------------ occupancy counts
+def _counts(adj):
+    return adj.compact_hits, adj.overflows
+
+
+def _grew(adj, before):
+    """(relax calls, overflows, compact hits) since ``before``."""
+    hits, over = (x - y for x, y in zip(_counts(adj), before))
+    return hits + over, over, hits
+
+
+def _trace_counts(tr):
+    return int(tr.iters), int(tr.overflows), int(tr.compact_hits)
+
+
 @pytest.mark.parametrize("caps", [None] + list(LADDERS),
                          ids=["default", "tiny", "ladder"])
 def test_traced_sweeps_match_reference(caps):
+    """The relaxes ``CsrAdj`` counts over each sweep are the reference's
+    ``SweepTrace`` counts: one per iteration, a bucket hit or an overflow."""
     g = _graph(7)
     kw = dict(n_b=8) if caps is None else dict(caps=caps)
     r, ours = _csr_pair(g, **kw)
     src = _sources(g, 8, 3)
-    Tw, Tm, tr = mfbf(ours, _t(src), trace=True)
+    Tw, Tm = mfbf(ours, _t(src))
     jTw, jTm, jtr = jax.jit(lambda a, s: jax_mfbf(a, s, trace=True))(
         r, jnp.asarray(src))
     _eq(Tw, jTw)
     _eq(Tm, jTm)
-    assert len(tr.fnnz) == TRACE_CAP
-    assert tuple(tr.fnnz) == tuple(int(x) for x in _np(jtr.fnnz))
-    assert (tr.iters, tr.overflows, tr.compact_hits) == \
-        (int(jtr.iters), int(jtr.overflows), int(jtr.compact_hits))
+    assert _grew(ours, (0, 0)) == _trace_counts(jtr)
     rows = np.arange(8)
     jTw = jTw.at[rows, src].set(INF)
     jTm = jTm.at[rows, src].set(1.0)
-    Zp, trb = mfbr(ours, _t(_np(jTw)), _t(_np(jTm)), trace=True)
+    before = _counts(ours)
+    Zp = mfbr(ours, _t(_np(jTw)), _t(_np(jTm)))
     jZp, jtrb = jax.jit(lambda a, w, m: jax_mfbr(a, w, m, trace=True))(
         r, jTw, jTm)
     _eq(Zp, jZp)
-    assert tuple(trb.fnnz) == tuple(int(x) for x in _np(jtrb.fnnz))
-    assert (trb.iters, trb.overflows, trb.compact_hits) == \
-        (int(jtrb.iters), int(jtrb.overflows), int(jtrb.compact_hits))
-    # the untraced loop runs the same relaxations
-    Tw2, Tm2 = mfbf(ours, _t(src))
+    assert _grew(ours, before) == _trace_counts(jtrb)
+    # a fixed loop of as many iterations runs the same relaxations
+    before = _counts(ours)
+    Tw2, Tm2 = mfbf(ours, _t(src), iterate="fori", max_iters=int(jtr.iters))
     _eq(Tw2, Tw)
     _eq(Tm2, Tm)
+    assert _grew(ours, before) == _trace_counts(jtr)
 
 
 def test_traced_moments_and_dense_trace_match_reference():
     g = _graph(6)
     r, ours = _csr_pair(g, n_b=8)
     src, val = _sources(g, 8, 4), np.ones(8, bool)
-    got = mfbc_batch_moments_traced(ours, _t(src), _t(val))
+    got = metric_batch_moments(ours, _t(src), _t(val))
     want = jax_traced(r, jnp.asarray(src), jnp.asarray(val))
-    _check_moments(got[:3], want[:3])
-    assert got[3].iters == int(want[3].iters)
-    # a format without compaction traces no buckets
-    d = tadj.dense_adj_from_graph(g, device="cpu")
-    _, _, tr = mfbf(d, _t(src), trace=True)
-    assert tr.overflows == tr.compact_hits == 0 and tr.iters > 0
-    assert tr.fnnz[tr.iters:] == (-1,) * (TRACE_CAP - tr.iters)
+    _check_moments(got, want[:3])
+    assert _grew(ours, (0, 0)) == tuple(
+        a + b for a, b in zip(_trace_counts(want[3]), _trace_counts(want[4])))
+    # a format without compaction counts nothing
+    q = tbc.BCQuery(mode="exact", n_b=8,
+                    execution=tbc.ExecutionConfig(backend="dense"))
+    ex = tbc.build_executor(g, tbc.plan(g, q, n_devices=1, device="cpu"),
+                            device="cpu")
+    dense = ex.step(src, val)
+    ex.step_sum(src, val)
+    assert ex.occupancy_summary() is None
+    assert not hasattr(ex._adj, "compact_hits")
+    _eq(dense[2], got[2])
+
+
+@pytest.mark.parametrize("caps", [None, LADDERS[0]], ids=["default", "tiny"])
+def test_executor_counts_betweenness_batches_only(caps):
+    """Occupancy grows on betweenness ``step`` and ``step_sum``, not on
+    ``step_segmented`` or a closeness batch; ``step_sum`` is
+    ``mfbc_batch``'s λ_partial bitwise and ``step``'s S1 within rtol."""
+    g = _graph(7)
+    q = tbc.BCQuery(mode="exact", n_b=8,
+                    execution=tbc.ExecutionConfig(backend="csr"))
+    ex = tbc.build_executor(g, tbc.plan(g, q, n_devices=1, device="cpu"),
+                            device="cpu")
+    if caps is not None:
+        ex._adj = dataclasses.replace(ex._adj, caps=caps)
+    adj = ex._adj
+    src, val = _sources(g, 8, 6), np.ones(8, bool)
+    val[-2:] = False
+    sid = np.array([0, 0, 1, 1, 0, 1, 0, 1], np.int32)
+    ex.step_segmented(src, val, sid, 2)
+    ex.step_segmented(src, val, sid, 2, metrics=("closeness", "betweenness"))
+    ex.step(src, val, metric="closeness")
+    ex.step_sum(src, val, metric="closeness")
+    assert ex.occupancy_summary() is None
+    assert sum(_counts(adj)) > 0  # the adjacency counted them all
+    before = _counts(adj)
+    lam = ex.step_sum(src, val)
+    one = ex.occupancy_summary()
+    calls, over, hits = _grew(adj, before)
+    assert one == {"batches": 1, "overflows": over, "compact_hits": hits,
+                   "relax_calls": calls, "hit_rate": hits / calls}
+    assert calls > 0 and (hits == 0) == (caps is not None)
+    s1, _, _ = ex.step(src, val)
+    two = ex.occupancy_summary()
+    assert two["batches"] == 2
+    for k in ("overflows", "compact_hits", "relax_calls"):
+        assert two[k] == 2 * one[k]
+    want, _, _ = mfbc_batch(adj, _t(src), _t(val))
+    _eq(lam, want.numpy().astype(np.float64))
+    np.testing.assert_allclose(lam, s1, rtol=1e-5, atol=1e-8)
 
 
 def test_occupancy_summary_matches_reference():
@@ -480,7 +541,7 @@ def _batch(adj, src):
     Tw_m = Tw.clone()
     Tw_m[torch.arange(src.size), s.long()] = INF
     return (Tw, Tm, adj.count_sp_children(Tw_m),
-            *mfbc_batch_moments(adj, s, v))
+            *metric_batch_moments(adj, s, v))
 
 
 @pytest.mark.parametrize("scale,nb", [(6, 8), (7, 16)])
@@ -507,11 +568,10 @@ def test_forced_ladders_bitwise_equal_default(caps, seed):
     g = _graph(6)
     src = _t(_sources(g, 4, seed))
     val = torch.ones(4, dtype=torch.bool)
-    ref_out = mfbc_batch_moments(tadj.csr_adj_from_graph(g, n_b=4,
-                                                         device="cpu"),
-                                 src, val)
-    got = mfbc_batch_moments(tadj.csr_adj_from_graph(g, caps=caps,
-                                                     device="cpu"), src, val)
+    ref_out = metric_batch_moments(
+        tadj.csr_adj_from_graph(g, n_b=4, device="cpu"), src, val)
+    got = metric_batch_moments(
+        tadj.csr_adj_from_graph(g, caps=caps, device="cpu"), src, val)
     for a, b in zip(ref_out, got):
         _eq(a, b)
 
@@ -520,11 +580,11 @@ def test_padding_arcs_inert():
     g = _graph(6)
     src = _t(_sources(g, 4, 9))
     val = torch.ones(4, dtype=torch.bool)
-    raw = mfbc_batch_moments(tadj.csr_adj_from_graph(
+    raw = metric_batch_moments(tadj.csr_adj_from_graph(
         g, n_b=4, pad_multiple=1, device="cpu"), src, val)
-    padded = mfbc_batch_moments(tadj.csr_adj_from_graph(
+    padded = metric_batch_moments(tadj.csr_adj_from_graph(
         g, n_b=4, pad_multiple=32, device="cpu"), src, val)
-    coo = mfbc_batch_moments(tadj.coo_adj_from_graph(
+    coo = metric_batch_moments(tadj.coo_adj_from_graph(
         g, pad_multiple=256, device="cpu"), src, val)
     for a, b, c in zip(raw, padded, coo):
         _eq(a, b)
@@ -538,7 +598,7 @@ def test_moments_match_reference():
     r, ours = _csr_pair(g, n_b=16)
     src, val = _sources(g, 16, 2), np.ones(16, bool)
     val[-3:] = False
-    got = mfbc_batch_moments(ours, _t(src), _t(val))
+    got = metric_batch_moments(ours, _t(src), _t(val))
     want = jax_moments(r, jnp.asarray(src), jnp.asarray(val))
     _check_moments(got, want)
 
