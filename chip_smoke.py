@@ -307,7 +307,13 @@ order; any failed check raises and the script exits non-zero:
     Phase 14a's step is a main-path run of the dense kernels and the
     child count kernel, which is then held bitwise to its plain form on
     MFBF's distances at (64, 65536) and timed beside its bound and the
-    plain form's time.
+    plain form's time. Then both products at (64, 65536, 65536) on F
+    drawn with 0.008, 0.39, 0.95 and all of its columns live
+    (``LIVE_SHARES``), each held on 128 columns and timed beside the
+    full-k bound and the bound at its live k, and the live-k packing
+    (``live_k.cu``) held bitwise to its plain form (counts, and k, w and
+    x at the live positions, at S = 1 and at ``pick_splits``' S) and timed
+    alone beside its bound and its plain form.
 
 Each main-path run (phases 3, 4, 5a, 5b on the dense kernels, 6c and 6d
 on the sparse relax, every run of 7a, 7c and 7d on its backend's
@@ -378,6 +384,8 @@ from repro_torch.kernels import _build, ref  # noqa: E402
 from repro_torch.kernels.centpath_mm import centpath_matmul_cuda  # noqa: E402
 from repro_torch.kernels.child_count import child_count_cuda  # noqa: E402
 from repro_torch.kernels.csr_expand import csr_expand_cuda  # noqa: E402
+from repro_torch.kernels.live_k import (live_k_cuda, live_k_ref,  # noqa: E402
+                                        slice_len)
 from repro_torch.kernels.segment_relax import (LONG_RUN,  # noqa: E402
                                                segment_relax_cuda)
 from repro_torch.kernels.tropical_mm import (BM, BN,  # noqa: E402
@@ -457,11 +465,19 @@ CSR_EXPAND = dict(
     wrapper=csr_expand_cuda,
     source="src/repro_torch/kernels/csrc/csr_expand.cu",
     replaces="src/repro/core/monoids.py::_expand_edges")
+# The live-k packing that precedes each product launch on the card. No
+# Pallas kernel stands behind it: the reference's products sweep every k.
+LIVE_K = dict(
+    wrapper=live_k_cuda,
+    source="src/repro_torch/kernels/csrc/live_k.cu",
+    replaces="none: the products' sweep over every k")
 WRAPPERS = {**{name: k["wrapper"] for name, k in KERNELS.items()},
             "segment_relax": segment_relax_cuda,
             "child_count": child_count_cuda,
-            "csr_expand": csr_expand_cuda}
-DENSE_PATH = tuple(KERNELS)  # the kernels each dense run must launch
+            "csr_expand": csr_expand_cuda,
+            "live_k": live_k_cuda}
+# the kernels each dense run must launch: the products and their packing
+DENSE_PATH = tuple(KERNELS) + ("live_k",)
 # and each single-host dense run (a mesh counts children by a product)
 DENSE_COUNT_PATH = DENSE_PATH + ("child_count",)
 SPARSE_PATH = ("segment_relax",)  # and each COO / CSR run
@@ -3777,6 +3793,113 @@ def column_check(name: str, args, cols: torch.Tensor, where: str) -> float:
     return err
 
 
+# The live shares of F's columns timed at 7d's shape: MFBF's first relax,
+# its middle, and MFBr's first relaxes (PERF.md §6), and every column.
+LIVE_SHARES = (0.008, 0.39, 0.95, 1.0)
+
+
+def live_frontier(name: str, nb: int, n: int, share: float,
+                  gen: torch.Generator):
+    """(fw, f2, k_live) on the card: ``share`` of F's n columns live
+    (``k_live`` of them), half of each live column's rows active and at
+    least one, every other entry the identity."""
+    k_live = round(share * n)
+    col = torch.zeros(n, dtype=torch.bool, device=DEV)
+    col[torch.randperm(n, generator=gen, device=DEV)[:k_live]] = True
+    active = (torch.rand((nb, n), generator=gen, device=DEV) < 0.5) & col
+    rows = torch.randint(0, nb, (n,), generator=gen, device=DEV)
+    active[rows, torch.arange(n, device=DEV)] |= col
+    mp = name == "multpath_mm"
+    fw = torch.where(active, torch.randint(0, 20, (nb, n), generator=gen,
+                                           device=DEV).float(),
+                     INF if mp else -INF)
+    f2 = torch.where(active, torch.randint(1, 5, (nb, n), generator=gen,
+                                           device=DEV).float() if mp
+                     else torch.rand((nb, n), generator=gen, device=DEV),
+                     0.0)
+    return fw, f2, k_live
+
+
+def live_k_bound(nb: int, n: int, n_live: int) -> float:
+    """Least ms of one live-k packing: F.w read once, the live columns of
+    the other field read and those of both written once, their k written
+    (bytes at the memory peak)."""
+    return 1e3 * ((nb * n + 3 * nb * n_live) * 4 + 4 * n_live) \
+        / PEAK_BYTES_PER_S
+
+
+def live_k_check(fw, f2, splits: int, finite: bool, where: str) -> float:
+    """Hold ``live_k_cuda`` to ``live_k_ref`` on one F: ``counts`` bit for
+    bit, and ``idx``, w and x bit for bit at each slice's live positions
+    (past a slice's count the packing leaves scratch). Raises on any
+    difference; returns the largest |d| over the compared entries."""
+    got = live_k_cuda(fw, f2, splits, finite)
+    want = live_k_ref(fw, f2, splits, finite)
+    if not torch.equal(got.counts, want.counts):
+        raise AssertionError(f"live_k {where} S={splits}: counts "
+                             f"{got.counts.tolist()} != "
+                             f"{want.counts.tolist()}")
+    span = slice_len(fw.shape[1], splits)
+    pos = torch.cat([z * span + torch.arange(c, device=DEV)
+                     for z, c in enumerate(want.counts[:-1].tolist())]
+                    + [torch.zeros(0, dtype=torch.long, device=DEV)])
+    err = 0.0
+    for field, x, y in (("idx", got.idx[pos], want.idx[pos]),
+                        ("w", got.w[:, pos], want.w[:, pos]),
+                        ("x", got.x[:, pos], want.x[:, pos])):
+        if not torch.equal(x.view(torch.int32), y.view(torch.int32)):
+            raise AssertionError(f"live_k {where} S={splits}: {field} not "
+                                 f"bitwise equal at the live positions "
+                                 f"(max |d| {max_abs_err(x, y)})")
+        err = max(err, max_abs_err(x.float(), y.float()))
+    return err
+
+
+def live_share_timing(adj, gen: torch.Generator, errs: dict) -> dict:
+    """Both products at 7d's (64, n, n) on F drawn at each of
+    ``LIVE_SHARES``: held on ``BC64K_COLS`` columns against the plain
+    version, timed beside the full-k bound and the bound at the live k;
+    and the live-k packing held bitwise to its plain form at one slice
+    and at the main path's split count (``live_k_check``, its largest
+    |d| in ``errs["live_k"]``), and timed alone beside its bound and its
+    plain form."""
+    n = adj.n
+    shape = (BC64K_NB, n, n)
+    out = {}
+    errs.setdefault("live_k", 0.0)
+    for share in LIVE_SHARES:
+        for name in KERNELS:
+            fw, f2, k_live = live_frontier(name, BC64K_NB, n, share, gen)
+            args = (fw, f2, adj.a if name == "multpath_mm" else adj.at)
+            errs[name] = max(errs[name], column_check(
+                name, args, check_columns(n, 16),
+                f"14a live share {share} {shape}"))
+            ms = time_ms(lambda: KERNELS[name]["wrapper"](*args), iters=10)
+            full_ms, _ = bound(name, *shape)
+            live_ms, _ = bound(name, BC64K_NB, k_live, n)
+            finite = name == "centpath_mm"
+            splits = pick_splits(*shape, sm_count(0))
+            for s in sorted({1, splits}):
+                errs["live_k"] = max(errs["live_k"], live_k_check(
+                    fw, f2, s, finite, f"{name} live share {share}"))
+            pack_ms = time_ms(lambda: live_k_cuda(fw, f2, splits, finite),
+                              iters=20)
+            plain_ms = time_ms(lambda: live_k_ref(fw, f2, splits, finite),
+                               iters=5, warmup=1)
+            pack_bound = live_k_bound(BC64K_NB, n, k_live)
+            log(f"time {name} {shape} live share {share} ({k_live} of {n} "
+                f"k): {ms:.4f} ms a launch, {100 * full_ms / ms:.1f}% of "
+                f"the full-k bound {full_ms:.4f} ms, {100 * live_ms / ms:.1f}"
+                f"% of the live-k bound {live_ms:.4f} ms; live_k packing "
+                f"{pack_ms:.4f} ms ({100 * pack_bound / pack_ms:.1f}% of its "
+                f"{pack_bound:.4f} ms bound), plain {plain_ms:.4f} ms")
+            out[(name, share)] = (ms, full_ms, live_ms, pack_ms, plain_ms,
+                                  pack_bound)
+            del fw, f2, args
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase14a(launches, errs: dict) -> dict:
     """mfbc_paper x bc_dense_64k on one card; returns the products' ms at
     (64, 65536, 65536) and at ``WEB_SHAPE``."""
@@ -3849,6 +3972,7 @@ def phase14a(launches, errs: dict) -> dict:
     log(f"14a: uncapped, MFBF runs {it_bf} iterations and MFBr "
         f"{it_br} on this graph; the cell caps both at {iters} "
         f"({'truncates' if max(it_bf, it_br) > iters else 'no truncation'})")
+    out["live"] = live_share_timing(adj, gen, errs)
     del adj, Tw, Tm, a
     torch.cuda.empty_cache()
 
@@ -4329,6 +4453,13 @@ def main() -> None:
                  "replaces": CSR_EXPAND["replaces"],
                  "launches": launches["csr_expand"], "max_abs_err": 0,
                  **relax_times["expand"]})
+    pack = times14["dense_64k"]["live"][("multpath_mm", 1.0)]
+    rows.append({"name": "live_k", "route": "cuda",
+                 "source": LIVE_K["source"], "replaces": LIVE_K["replaces"],
+                 "launches": launches["live_k"],
+                 "max_abs_err": errs["live_k"],
+                 "ms": pack[3], "plain_ms": pack[4], "bound_ms": pack[5],
+                 "bound_by": "bytes", "library_ms": None})
     cc_ms, cc_plain, cc_bound, cc_by = times14["dense_64k"]["child_count"]
     rows.append({"name": "child_count", "route": "cuda",
                  "source": CHILD_COUNT["source"],

@@ -1,0 +1,11 @@
+"""multpath_mm_live_roofline (%): the multpath product (``multpath_mm.cu``,
+main and fold kernels) against its bound over the k it walks: launches in
+the window at the cell's product shape, each at the launches' mean live k
+(``common/live_bound.py``), over the device seconds the trace gives the
+file's kernels. ``multpath_mm_roofline`` bounds the same time over all n
+of k. Nothing where the program counts no live k."""
+from portbench.metrics.common import live_bound
+
+
+def read(ctx):
+    return live_bound.single_card_share(ctx, "multpath_mm")

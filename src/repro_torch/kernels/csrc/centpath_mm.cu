@@ -48,7 +48,19 @@
 //   for a one-pass update. Ties at -inf may add garbage to p and c; the
 //   first finite maximum resets them, and each slice's epilogue zeroes p
 //   and c wherever w is still -inf, which is the plain version's result.
-// ptxas (-Xptxas=-v, CUDA 12.8): 126 and 124 registers for the 4- and
+// - Only the frontier's live k, as in multpath_mm.cu: live_k.cu packs each
+//   slice's columns with a finite F.w (a non-finite one is -inf after the
+//   guard, the identity candidate for every cell) from the slice's first
+//   k, with their k and count; slice z walks its count in tiles of BK,
+//   staging the packed F and B's rows b[idx[i]] (each a contiguous
+//   64-column chunk, so the 16-byte copies stay open), reading the B rows
+//   of the tile after next while it reduces this one; a slice with no
+//   live k writes (-inf, 0, 0). The
+//   slices keep their k ranges and each walks its live k in ascending
+//   order, so w is the same maximum and p and c the same sums of the same
+//   nonzero terms in the same order: every output is bitwise the full
+//   sweep's at the same S, and a row's do not depend on its batch.
+// ptxas (-Xptxas=-v, CUDA 12.8): 128 and 122 registers for the 4- and
 // 16-byte-copy instances, no spills, 43008 bytes of shared memory, two
 // blocks (16 warps) per SM; the fold 32.
 // Runs on the caller's stream, allocates nothing (the wrapper passes the
@@ -106,29 +118,51 @@ __device__ __forceinline__ float guard_b(float v) {
   return isfinite(v) ? v : CUDART_INF_F;
 }
 
+// The B rows that thread `tid` stages from tile `t` of a slice's live k:
+// row[i] = idx[base + t·BK + r_i] for its rows r_i of the tile, -1 past
+// the slice's `live` count.
+template <bool VEC>
+__device__ __forceinline__ void fetch_rows(int (&row)[4], const int* idx,
+                                           int base, int live, int t,
+                                           int tid) {
+  if (VEC) {
+    const int q = t * BK + tid / (BN / 4);
+    row[0] = q < live ? idx[base + q] : -1;
+  } else {
+#pragma unroll
+    for (int i = 0; i < BK * BN / THREADS; ++i) {
+      const int q = t * BK + (tid + i * THREADS) / BN;
+      row[i] = q < live ? idx[base + q] : -1;
+    }
+  }
+}
+
 // The elements of a stage that thread `tid` copies: in the 16-byte path
 // one 4-float chunk of each array, else BM·BK/THREADS single floats of F
 // and BK·BN/THREADS of B. load_tile and guard_tile walk the same ones.
+// Tile `t` is F's packed columns base + t·BK .. +BK and B's rows `row`.
 template <bool VEC>
 __device__ __forceinline__ void load_tile(Stage& s, const float* fw,
                                           const float* fp, const float* b,
-                                          int nb, int n, int n2, int row0,
-                                          int col0, int kt, int tid) {
-  const int k0 = kt * BK;
+                                          const int (&row)[4], int nb, int n,
+                                          int n2, int row0, int col0,
+                                          int base, int live, int t,
+                                          int tid) {
+  const int q0 = t * BK;
   if (VEC) {
     {
       const int r = tid / (BK / 4);
       const int c = (tid % (BK / 4)) * 4;
       const int gr = row0 + r;
-      const int gk = k0 + c;
-      const size_t off = static_cast<size_t>(gr) * n + gk;
-      if (gr < nb && gk + 3 < n) {
+      const int q = q0 + c;
+      const size_t off = static_cast<size_t>(gr) * n + base + q;
+      if (gr < nb && q + 3 < live) {
         cp_async(&s.fw[r][c], fw + off, true);
         cp_async(&s.fp[r][c], fp + off, true);
       } else {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const bool in = gr < nb && gk + e < n;
+          const bool in = gr < nb && q + e < live;
           s.fw[r][c + e] = in ? fw[off + e] : -CUDART_INF_F;
           s.fp[r][c + e] = in ? fp[off + e] : 0.f;
         }
@@ -137,16 +171,16 @@ __device__ __forceinline__ void load_tile(Stage& s, const float* fw,
     {
       const int r = tid / (BN / 4);
       const int c = (tid % (BN / 4)) * 4;
-      const int gk = k0 + r;
+      const int gk = row[0];
       const int gc = col0 + c;
       const size_t off = static_cast<size_t>(gk) * n2 + gc;
-      if (gk < n && gc + 3 < n2) {
+      if (gk >= 0 && gc + 3 < n2) {
         cp_async(&s.b[r][c], b + off, true);
       } else {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          s.b[r][c + e] = (gk < n && gc + e < n2) ? b[off + e]
-                                                  : CUDART_INF_F;
+          s.b[r][c + e] = (gk >= 0 && gc + e < n2) ? b[off + e]
+                                                   : CUDART_INF_F;
         }
       }
     }
@@ -157,9 +191,9 @@ __device__ __forceinline__ void load_tile(Stage& s, const float* fw,
       const int r = e / BK;
       const int c = e % BK;
       const int gr = row0 + r;
-      const int gk = k0 + c;
-      const size_t off = static_cast<size_t>(gr) * n + gk;
-      if (gr < nb && gk < n) {
+      const int q = q0 + c;
+      const size_t off = static_cast<size_t>(gr) * n + base + q;
+      if (gr < nb && q < live) {
         cp_async(&s.fw[r][c], fw + off, false);
         cp_async(&s.fp[r][c], fp + off, false);
       } else {
@@ -172,9 +206,9 @@ __device__ __forceinline__ void load_tile(Stage& s, const float* fw,
       const int e = tid + i * THREADS;
       const int r = e / BN;
       const int c = e % BN;
-      const int gk = k0 + r;
+      const int gk = row[i];
       const int gc = col0 + c;
-      if (gk < n && gc < n2) {
+      if (gk >= 0 && gc < n2) {
         cp_async(&s.b[r][c], b + static_cast<size_t>(gk) * n2 + gc, false);
       } else {
         s.b[r][c] = CUDART_INF_F;
@@ -224,12 +258,14 @@ __device__ __forceinline__ float lane(const float4& v, int i) {
 }
 
 // Grid (⌈n2/BN⌉, ⌈nb/BM⌉, S); slice z = blockIdx.z owns k-tiles
-// [z·kts, min((z+1)·kts, ⌈n/BK⌉)) with kts = ⌈⌈n/BK⌉/S⌉ and writes its
-// (w, p, c) to ow/op/oc + z·nb·n2.
+// [z·kts, min((z+1)·kts, ⌈n/BK⌉)) with kts = ⌈⌈n/BK⌉/S⌉; its counts[z]
+// live k are idx[z·kts·BK + i], and F's packed columns z·kts·BK + i
+// (live_k.cu). It writes its (w, p, c) to ow/op/oc + z·nb·n2.
 template <bool VEC>
 __global__ void __launch_bounds__(THREADS, 2)
 centpath_mm_kernel(const float* __restrict__ fw, const float* __restrict__ fp,
-                   const float* __restrict__ b, float* __restrict__ ow,
+                   const float* __restrict__ b, const int* __restrict__ idx,
+                   const int* __restrict__ counts, float* __restrict__ ow,
                    float* __restrict__ op, float* __restrict__ oc, int nb,
                    int n, int n2) {
   __shared__ __align__(16) Stage st[STAGES];
@@ -241,8 +277,10 @@ centpath_mm_kernel(const float* __restrict__ fw, const float* __restrict__ fp,
   const int col0 = blockIdx.x * BN;
   const int k_tiles = (n + BK - 1) / BK;
   const int kts = (k_tiles + gridDim.z - 1) / gridDim.z;
-  const int kt0 = blockIdx.z * kts;
-  const int nt = max(0, min(k_tiles, kt0 + kts) - kt0);
+  const int base = blockIdx.z * kts * BK;
+  const int live = counts[blockIdx.z];
+  const int nt = (live + BK - 1) / BK;
+  int row[4];  // B's rows of the next tile to stage
 
   float accw[TM][TN];
   float accp[TM][TN];
@@ -260,19 +298,24 @@ centpath_mm_kernel(const float* __restrict__ fw, const float* __restrict__ fp,
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
     if (s < nt) {
-      load_tile<VEC>(st[s], fw, fp, b, nb, n, n2, row0, col0, kt0 + s, tid);
+      fetch_rows<VEC>(row, idx, base, live, s, tid);
+      load_tile<VEC>(st[s], fw, fp, b, row, nb, n, n2, row0, col0, base,
+                     live, s, tid);
     }
     cp_commit();
   }
+  fetch_rows<VEC>(row, idx, base, live, STAGES - 1, tid);
   for (int t = 0; t < nt; ++t) {
     cp_wait<STAGES - 2>();  // this thread's copies of tile t have landed
     guard_tile<VEC>(st[t % STAGES], tid);
     __syncthreads();        // everyone's have, and tile t-1 is consumed
     if (t + STAGES - 1 < nt) {
-      load_tile<VEC>(st[(t + STAGES - 1) % STAGES], fw, fp, b, nb, n, n2,
-                     row0, col0, kt0 + t + STAGES - 1, tid);
+      load_tile<VEC>(st[(t + STAGES - 1) % STAGES], fw, fp, b, row, nb, n,
+                     n2, row0, col0, base, live, t + STAGES - 1, tid);
     }
     cp_commit();
+    // The rows of the tile after next, in flight while this one reduces.
+    fetch_rows<VEC>(row, idx, base, live, t + STAGES, tid);
     const Stage& s = st[t % STAGES];
     // Pass 1: each cell's largest candidate over the tile's BK steps.
     float tmax[TM][TN];
@@ -396,13 +439,16 @@ bool aligned16(const void* p) {
 
 }  // namespace
 
-// fw, fp: (nb, n) row-major float32; b: (n, n2) row-major float32 (Aᵀ on
+// fw, fp: (nb, n) row-major float32, F's live columns packed by slice
+// and idx (n) and counts (splits) int32 their k and counts, as live_k.cu
+// writes them for this n and splits; b: (n, n2) row-major float32 (Aᵀ on
 // the main path); cw, cp, cc: (nb, n2) outputs; part: scratch of
 // 3·splits·nb·n2 floats (may be null when splits == 1). All on `device`.
 // Returns a cudaError_t.
 extern "C" int centpath_mm(const float* fw, const float* fp, const float* b,
-                           float* cw, float* cp, float* cc, float* part,
-                           int nb, int n, int n2, int splits, int device,
+                           const int* idx, const int* counts, float* cw,
+                           float* cp, float* cc, float* part, int nb, int n,
+                           int n2, int splits, int device,
                            cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -417,12 +463,11 @@ extern "C" int centpath_mm(const float* fw, const float* fp, const float* b,
   const bool vec = n % 4 == 0 && n2 % 4 == 0 && aligned16(fw) &&
                    aligned16(fp) && aligned16(b);
   if (vec) {
-    centpath_mm_kernel<true><<<grid, THREADS, 0, stream>>>(fw, fp, b, ow, op,
-                                                           oc, nb, n, n2);
+    centpath_mm_kernel<true><<<grid, THREADS, 0, stream>>>(
+        fw, fp, b, idx, counts, ow, op, oc, nb, n, n2);
   } else {
-    centpath_mm_kernel<false><<<grid, THREADS, 0, stream>>>(fw, fp, b, ow,
-                                                            op, oc, nb, n,
-                                                            n2);
+    centpath_mm_kernel<false><<<grid, THREADS, 0, stream>>>(
+        fw, fp, b, idx, counts, ow, op, oc, nb, n, n2);
   }
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);

@@ -52,9 +52,28 @@
 //   finite. That is the plain version's result, whose ties exclude
 //   non-finite candidates.
 // - Each thread sweeps its slice's k in ascending order.
-// ptxas (-Xptxas=-v, CUDA 12.8): 128 registers with an 8-byte spill for
-// the 4-byte-copy instance, 114 and no spill for the 16-byte one, 43008
-// bytes of shared memory, so two blocks (16 warps) per SM; the fold 31.
+// - Only the frontier's live k. MFBF's maximal frontier is (inf, 0) in
+//   most columns, and a column whose every row has F.w = +inf adds nothing
+//   to any cell. Before each launch live_k.cu packs each slice's live
+//   columns of F from the slice's first k, in F's layout, and writes their
+//   k (idx) and count (counts[z]) to device memory. Slice z walks its
+//   count in tiles of BK: F's tiles come from the packed copy, A's staged
+//   row i is a[idx[i]] (still a contiguous 64-column chunk, so the 16-byte
+//   path stays open), and each thread reads the A rows of the tile after
+//   next while it reduces this one. The grid stays sized from n and a
+//   block reads its slice's count on the card, so nothing waits on the
+//   host; a slice with no live k writes the identity partial (inf, 0).
+//   The slices keep their k ranges (pick_splits is unchanged) and each
+//   walks its live k in ascending order: w is the same minimum, and m the
+//   same sum with the same nonzero terms in the same order (a dead k adds
+//   nothing, or garbage at w = inf that the first finite minimum resets).
+//   So every output is bitwise what the full sweep gives at the same S,
+//   and a row's outputs do not depend on the rows beside it. Re-cutting
+//   the live list into even slices would change the order of m's sums.
+// ptxas (-Xptxas=-v, CUDA 12.8): 128 registers with a 24-byte spill for
+// the 4-byte-copy instance (its four A-row indices a thread), 126 and no
+// spill for the 16-byte one, 43008 bytes of shared memory, so two blocks
+// (16 warps) per SM; the fold 31.
 // Capping the kernel at 80 registers for three blocks per SM spilled
 // more and ran slower.
 // Runs on the caller's stream, allocates nothing (the wrapper passes the
@@ -106,27 +125,51 @@ __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// Stage k-tile `kt` of F (rows row0..row0+63) and A (columns col0..+63).
+// The A rows that thread `tid` stages from tile `t` of a slice's live k:
+// row[i] = idx[base + t·BK + r_i] for its rows r_i of the tile, -1 past
+// the slice's `live` count. The 16-byte path copies one chunk a thread
+// (row tid / 16), the 4-byte path BK·BN/THREADS floats (rows tid / 64 +
+// 4·i).
+template <bool VEC>
+__device__ __forceinline__ void fetch_rows(int (&row)[4], const int* idx,
+                                           int base, int live, int t,
+                                           int tid) {
+  if (VEC) {
+    const int q = t * BK + tid / (BN / 4);
+    row[0] = q < live ? idx[base + q] : -1;
+  } else {
+#pragma unroll
+    for (int i = 0; i < BK * BN / THREADS; ++i) {
+      const int q = t * BK + (tid + i * THREADS) / BN;
+      row[i] = q < live ? idx[base + q] : -1;
+    }
+  }
+}
+
+// Stage tile `t` of a slice's live k: F's packed columns base + t·BK ..
+// +BK (rows row0..row0+63) and A's rows `row` (columns col0..+63).
 template <bool VEC>
 __device__ __forceinline__ void load_tile(Stage& s, const float* fw,
                                           const float* fm, const float* a,
-                                          int nb, int n, int n2, int row0,
-                                          int col0, int kt, int tid) {
-  const int k0 = kt * BK;
+                                          const int (&row)[4], int nb, int n,
+                                          int n2, int row0, int col0,
+                                          int base, int live, int t,
+                                          int tid) {
+  const int q0 = t * BK;
   if (VEC) {
     {  // F: 64 rows x 4 chunks of 4, one chunk of each array per thread
       const int r = tid / (BK / 4);
       const int c = (tid % (BK / 4)) * 4;
       const int gr = row0 + r;
-      const int gk = k0 + c;
-      const size_t off = static_cast<size_t>(gr) * n + gk;
-      if (gr < nb && gk + 3 < n) {
+      const int q = q0 + c;
+      const size_t off = static_cast<size_t>(gr) * n + base + q;
+      if (gr < nb && q + 3 < live) {
         cp_async(&s.fw[r][c], fw + off, true);
         cp_async(&s.fm[r][c], fm + off, true);
       } else {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const bool in = gr < nb && gk + e < n;
+          const bool in = gr < nb && q + e < live;
           s.fw[r][c + e] = in ? fw[off + e] : CUDART_INF_F;
           s.fm[r][c + e] = in ? fm[off + e] : 0.f;
         }
@@ -135,16 +178,16 @@ __device__ __forceinline__ void load_tile(Stage& s, const float* fw,
     {  // A: BK rows x 16 chunks of 4, one chunk per thread
       const int r = tid / (BN / 4);
       const int c = (tid % (BN / 4)) * 4;
-      const int gk = k0 + r;
+      const int gk = row[0];
       const int gc = col0 + c;
       const size_t off = static_cast<size_t>(gk) * n2 + gc;
-      if (gk < n && gc + 3 < n2) {
+      if (gk >= 0 && gc + 3 < n2) {
         cp_async(&s.a[r][c], a + off, true);
       } else {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          s.a[r][c + e] = (gk < n && gc + e < n2) ? a[off + e]
-                                                  : CUDART_INF_F;
+          s.a[r][c + e] = (gk >= 0 && gc + e < n2) ? a[off + e]
+                                                   : CUDART_INF_F;
         }
       }
     }
@@ -155,9 +198,9 @@ __device__ __forceinline__ void load_tile(Stage& s, const float* fw,
       const int r = e / BK;
       const int c = e % BK;
       const int gr = row0 + r;
-      const int gk = k0 + c;
-      const size_t off = static_cast<size_t>(gr) * n + gk;
-      if (gr < nb && gk < n) {
+      const int q = q0 + c;
+      const size_t off = static_cast<size_t>(gr) * n + base + q;
+      if (gr < nb && q < live) {
         cp_async(&s.fw[r][c], fw + off, false);
         cp_async(&s.fm[r][c], fm + off, false);
       } else {
@@ -170,9 +213,9 @@ __device__ __forceinline__ void load_tile(Stage& s, const float* fw,
       const int e = tid + i * THREADS;
       const int r = e / BN;
       const int c = e % BN;
-      const int gk = k0 + r;
+      const int gk = row[i];
       const int gc = col0 + c;
-      if (gk < n && gc < n2) {
+      if (gk >= 0 && gc < n2) {
         cp_async(&s.a[r][c], a + static_cast<size_t>(gk) * n2 + gc, false);
       } else {
         s.a[r][c] = CUDART_INF_F;
@@ -198,12 +241,14 @@ __device__ __forceinline__ float lane(const float4& v, int i) {
 }
 
 // Grid (⌈n2/BN⌉, ⌈nb/BM⌉, S). Slice z = blockIdx.z owns k-tiles
-// [z·kts, min((z+1)·kts, ⌈n/BK⌉)) with kts = ⌈⌈n/BK⌉/S⌉, and writes its
-// (w, m) to ow/om + z·nb·n2.
+// [z·kts, min((z+1)·kts, ⌈n/BK⌉)) with kts = ⌈⌈n/BK⌉/S⌉; its counts[z]
+// live k are idx[z·kts·BK + i], and F's packed columns z·kts·BK + i
+// (live_k.cu). It writes its (w, m) to ow/om + z·nb·n2.
 template <bool VEC>
 __global__ void __launch_bounds__(THREADS, 2)
 multpath_mm_kernel(const float* __restrict__ fw, const float* __restrict__ fm,
-                   const float* __restrict__ a, float* __restrict__ ow,
+                   const float* __restrict__ a, const int* __restrict__ idx,
+                   const int* __restrict__ counts, float* __restrict__ ow,
                    float* __restrict__ om, int nb, int n, int n2) {
   __shared__ __align__(16) Stage st[STAGES];
 
@@ -214,8 +259,10 @@ multpath_mm_kernel(const float* __restrict__ fw, const float* __restrict__ fm,
   const int col0 = blockIdx.x * BN;
   const int k_tiles = (n + BK - 1) / BK;
   const int kts = (k_tiles + gridDim.z - 1) / gridDim.z;
-  const int kt0 = blockIdx.z * kts;
-  const int nt = max(0, min(k_tiles, kt0 + kts) - kt0);
+  const int base = blockIdx.z * kts * BK;
+  const int live = counts[blockIdx.z];
+  const int nt = (live + BK - 1) / BK;
+  int row[4];  // A's rows of the next tile to stage
 
   float accw[TM][TN];
   float accm[TM][TN];
@@ -231,18 +278,23 @@ multpath_mm_kernel(const float* __restrict__ fw, const float* __restrict__ fm,
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
     if (s < nt) {
-      load_tile<VEC>(st[s], fw, fm, a, nb, n, n2, row0, col0, kt0 + s, tid);
+      fetch_rows<VEC>(row, idx, base, live, s, tid);
+      load_tile<VEC>(st[s], fw, fm, a, row, nb, n, n2, row0, col0, base,
+                     live, s, tid);
     }
     cp_commit();
   }
+  fetch_rows<VEC>(row, idx, base, live, STAGES - 1, tid);
   for (int t = 0; t < nt; ++t) {
     cp_wait<STAGES - 2>();  // this thread's copies of tile t have landed
     __syncthreads();        // everyone's have, and tile t-1 is consumed
     if (t + STAGES - 1 < nt) {
-      load_tile<VEC>(st[(t + STAGES - 1) % STAGES], fw, fm, a, nb, n, n2,
-                     row0, col0, kt0 + t + STAGES - 1, tid);
+      load_tile<VEC>(st[(t + STAGES - 1) % STAGES], fw, fm, a, row, nb, n,
+                     n2, row0, col0, base, live, t + STAGES - 1, tid);
     }
     cp_commit();
+    // The rows of the tile after next, in flight while this one reduces.
+    fetch_rows<VEC>(row, idx, base, live, t + STAGES, tid);
     const Stage& s = st[t % STAGES];
     // Pass 1: each cell's smallest candidate over the tile's BK steps.
     float tmin[TM][TN];
@@ -351,13 +403,15 @@ bool aligned16(const void* p) {
 
 }  // namespace
 
-// fw, fm: (nb, n) row-major float32; a: (n, n2) row-major float32;
-// cw, cm: (nb, n2) outputs; part: scratch of 2·splits·nb·n2 floats (may
-// be null when splits == 1). All on `device`. Returns a cudaError_t.
+// fw, fm: (nb, n) row-major float32, F's live columns packed by slice
+// and idx (n) and counts (splits) int32 their k and counts, as live_k.cu
+// writes them for this n and splits; a: (n, n2) row-major float32; cw,
+// cm: (nb, n2) outputs; part: scratch of 2·splits·nb·n2 floats (may be
+// null when splits == 1). All on `device`. Returns a cudaError_t.
 extern "C" int multpath_mm(const float* fw, const float* fm, const float* a,
-                           float* cw, float* cm, float* part, int nb, int n,
-                           int n2, int splits, int device,
-                           cudaStream_t stream) {
+                           const int* idx, const int* counts, float* cw,
+                           float* cm, float* part, int nb, int n, int n2,
+                           int splits, int device, cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (splits < 1 || (splits > 1 && part == nullptr)) {
@@ -370,11 +424,11 @@ extern "C" int multpath_mm(const float* fw, const float* fm, const float* a,
   const bool vec = n % 4 == 0 && n2 % 4 == 0 && aligned16(fw) &&
                    aligned16(fm) && aligned16(a);
   if (vec) {
-    multpath_mm_kernel<true><<<grid, THREADS, 0, stream>>>(fw, fm, a, ow, om,
-                                                           nb, n, n2);
+    multpath_mm_kernel<true><<<grid, THREADS, 0, stream>>>(
+        fw, fm, a, idx, counts, ow, om, nb, n, n2);
   } else {
-    multpath_mm_kernel<false><<<grid, THREADS, 0, stream>>>(fw, fm, a, ow,
-                                                            om, nb, n, n2);
+    multpath_mm_kernel<false><<<grid, THREADS, 0, stream>>>(
+        fw, fm, a, idx, counts, ow, om, nb, n, n2);
   }
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);

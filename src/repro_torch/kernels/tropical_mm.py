@@ -3,11 +3,11 @@
 ``multpath_matmul_cuda`` launches ``csrc/multpath_mm.cu`` (design notes in
 the source) on CUDA tensors and nothing else: it checks device, dtype,
 shape and contiguity, allocates the outputs and the split-K scratch, picks
-the split count, launches on the current stream, raises if the launch
-fails, and counts its launches in ``multpath_matmul_cuda.launches``. Its
-plain PyTorch version is ``repro_torch.kernels.ref.multpath_matmul_ref``.
-``pick_splits``, ``resolve_splits`` and ``check_operands`` serve both
-kernels.
+the split count, packs the frontier's live columns (``live_k``), launches
+on the current stream, raises if the launch fails, and counts its launches
+in ``multpath_matmul_cuda.launches``. Its plain PyTorch version is
+``repro_torch.kernels.ref.multpath_matmul_ref``. ``pick_splits``,
+``resolve_splits`` and ``check_operands`` serve both kernels.
 """
 from __future__ import annotations
 
@@ -17,12 +17,13 @@ import math
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, live_k
+from repro_torch.kernels.live_k import BK
 
-_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
              + [ctypes.c_void_p])
 # The tile of both kernels (BM x BN outputs, BK deep per stage, 8 warps).
-BM, BN, BK = 64, 64, 16
+BM, BN = 64, 64
 WARPS_PER_BLOCK = 8
 MAX_ROWS = 65535 * BM  # grid.y limit times the row tile
 MIN_SLICE_K_TILES = 4  # each slice sweeps at least 4·BK of k
@@ -103,20 +104,25 @@ def check_operands(f_pair, b: torch.Tensor, what: str) -> None:
 
 def multpath_launch(fw: torch.Tensor, fm: torch.Tensor, a: torch.Tensor,
                     splits: int):
-    """Launch ``csrc/multpath_mm.cu`` with ``splits`` contraction slices
-    on operands that ``check_operands`` passed, nb and n2 > 0. Counts
-    nothing: ``multpath_matmul_cuda`` is the entry point."""
+    """Pack F's live columns and launch ``csrc/multpath_mm.cu`` over them
+    with ``splits`` contraction slices, on operands that ``check_operands``
+    passed, nb and n2 > 0. Counts no launch (``multpath_matmul_cuda``
+    is the entry point); records the contraction's k and live k while the
+    profiler runs (``live_k.count_contraction``)."""
     nb, n = fw.shape
     n2 = a.shape[1]
+    f = live_k.live_k_cuda(fw, fm, splits, finite=False)
     cw = torch.empty((nb, n2), dtype=torch.float32, device=fw.device)
     cm = torch.empty((nb, n2), dtype=torch.float32, device=fw.device)
     part, part_ptr = scratch_ptr(fw, n2, 2, splits)
     fn = _build.function("multpath_mm", _ARGTYPES)
-    rc = fn(fw.data_ptr(), fm.data_ptr(), a.data_ptr(), cw.data_ptr(),
-            cm.data_ptr(), part_ptr, nb, n, n2, splits, fw.device.index,
+    rc = fn(f.w.data_ptr(), f.x.data_ptr(), a.data_ptr(), f.idx.data_ptr(),
+            f.counts.data_ptr(), cw.data_ptr(), cm.data_ptr(), part_ptr, nb,
+            n, n2, splits, fw.device.index,
             torch.cuda.current_stream(fw.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"multpath_mm launch failed: cudaError {rc}")
+    live_k.count_contraction("multpath_mm", n, f.counts)
     return cw, cm
 
 

@@ -3,7 +3,8 @@ runs.
 
 * ``span(name, device=None, **attrs)``: a context manager around one
   layer's work;
-* ``count(name, k=1)``: bumps a counter;
+* ``count(name, k=1)``: bumps a counter by a host int, or by a 0-d
+  integer tensor that is kept unread until the snapshot;
 * ``snapshot(clear=True)``: the spans and counters of the last profiled
   stretch (a :class:`Snapshot`), cleared unless ``clear=False``;
 * ``summary(snap)``: per span name, its count, host ms, device ms and
@@ -26,10 +27,13 @@ two, idle time inside the span included, is read by ``snapshot()``,
 which synchronizes once. On the CPU the device interval is None.
 
 Attributes are host ints, or short names, that the caller holds already:
-the recorder reads no device value and adds no sync. One recorder serves
-the process, as the profiler does, and it holds one profiled stretch: a
-span or count that finds the profiler off marks the stretch closed, and
-the next one made while it runs drops what the last stretch left. So a
+the recorder reads no device value and adds no sync. A count by a device
+scalar (a length a kernel wrote, say) is kept as the tensor;
+``snapshot()`` reads all of them in one copy a device, after its
+synchronize. One recorder serves the process, as the profiler does, and
+it holds one profiled stretch: a span or count that finds the profiler
+off marks the stretch closed, and the next one made while it runs drops
+what the last stretch left. So a
 reader of a finished profile reads that profile's spans alone, and the
 spans of a long-running process that is profiled now and then do not pile
 up. (Two profiles with no span or count between them, as a repeating
@@ -141,12 +145,14 @@ class Recorder:
         self._ids = itertools.count()
         self._done: List[Span] = []
         self._counters: Dict[str, int] = {}
+        # counts by tensors, not read yet: (name, 0-d tensor)
+        self._pending: List[tuple] = []
         self._closed = False  # the profiler was seen off since last span
 
     def _open(self) -> None:
         """Under the lock: drop the last stretch if it was closed."""
         if self._closed:
-            self._done, self._counters = [], {}
+            self._done, self._counters, self._pending = [], {}, []
             self._closed = False
 
     def _stack(self) -> List[Span]:
@@ -166,25 +172,47 @@ class Recorder:
                 self._open()
         return _OpenSpan(self, name, device, attrs)
 
-    def count(self, name: str, k: int = 1) -> None:
+    def count(self, name: str, k: Union[int, torch.Tensor] = 1) -> None:
+        """Add ``k`` to the counter ``name``: a host int, or a 0-d integer
+        tensor, kept as it is and read by ``snapshot``."""
         if not _profiler_enabled():
             self._closed = True
             return
         with self._lock:
             self._open()
-            self._counters[name] = self._counters.get(name, 0) + k
+            if isinstance(k, torch.Tensor):
+                self._counters.setdefault(name, 0)
+                self._pending.append((name, k))
+            else:
+                self._counters[name] = self._counters.get(name, 0) + k
+
+    def _read_pending(self) -> None:
+        """Under the lock, the devices synchronized: add the tensors'
+        values to their counters, one copy a device."""
+        by_dev: Dict[torch.device, List[tuple]] = {}
+        for name, t in self._pending:
+            by_dev.setdefault(t.device, []).append((name, t))
+        for items in by_dev.values():
+            vals = torch.stack([t.reshape(()).to(torch.int64)
+                                for _, t in items]).tolist()
+            for (name, _), v in zip(items, vals):
+                self._counters[name] += v
+        self._pending = []
 
     def snapshot(self, clear: bool = True) -> Snapshot:
-        """What was recorded, device intervals read (one synchronize of
-        each CUDA device that spans ran on)."""
+        """What was recorded, device intervals and counts by tensors read
+        (one synchronize of each CUDA device that they are on)."""
         with self._lock:
+            timed = [s for s in self._done if s._events is not None]
+            for dev in ({s._events[0] for s in timed}
+                        | {t.device for _, t in self._pending
+                           if t.device.type == "cuda"}):
+                torch.cuda.synchronize(dev)
+            self._read_pending()
             done, counters = self._done, dict(self._counters)
             if clear:
                 self._done, self._counters = [], {}
-            pending = [s for s in done if s._events is not None]
-            for dev in {s._events[0] for s in pending}:
-                torch.cuda.synchronize(dev)
-            for s in pending:
+            for s in timed:
                 s.device_ms = s._events[1].elapsed_time(s._events[2])
                 s._events = None
         return Snapshot(sorted(done, key=lambda s: s.id), counters)

@@ -14,7 +14,12 @@ shapes, every split count ``pick_splits`` can give and inputs with ties,
 zero-weight arcs, ±0, rows of +inf and sums that overflow; the CSR arc
 expansion bitwise to ``core.monoids._expand_arcs`` (a hub range over many
 tiles, a uniform degree-8 graph, a bucket-2 shape), and its launch counter
-to the ``csr.runs`` spans of a CSR sweep. They skip on a host without a
+to the ``csr.runs`` spans of a CSR sweep. Both products
+skip the frontier's dead columns (``kernels/live_k.py``): on the card
+every output field is held bitwise to the same product without them, at
+live shares from none to all, and the packing kernel bitwise to its plain
+version, which the CPU tests hold to a numpy reading of "a column with a
+live row". They skip on a host without a
 card. On the card they run with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels.py
@@ -29,6 +34,7 @@ from repro_torch.core.monoids import count_sp_children_dense
 from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels.centpath_mm import centpath_matmul_cuda
 from repro_torch.kernels.child_count import child_count_cuda
+from repro_torch.kernels.live_k import live_k_cuda, live_k_ref, slice_len
 from repro_torch.kernels.tropical_mm import (BK, MIN_SLICE_K_TILES,
                                              _even_splits,
                                              multpath_matmul_cuda)
@@ -503,3 +509,167 @@ def test_csr_expand_counter_equals_csr_runs_spans(cuda):
     spans = len(snap.named("csr.runs"))
     assert spans > 0 and snap.counters.get(LAUNCH_COUNTER) == spans
     np.testing.assert_allclose(lam["cuda"], lam["cpu"], rtol=1e-5, atol=1e-8)
+
+
+# -- the frontier's live columns --------------------------------------------
+# Live shares of F's columns: none, one column, about 1 %, 40 % and all.
+LIVE_SHARES = [0.0, "one", 0.01, 0.4, 1.0]
+# (nb, n) of the packing: n ragged against the 256-column chunk and the
+# 16-deep stage, n = 4k + 2 for the products' 4-byte copies, and er64k's.
+LIVE_SHAPES = [(1, 17), (37, 3342), (64, 4096), (130, 1000), (64, 65536)]
+
+
+def _live_frontier(which, nb, n, share, seed, ints=False):
+    """numpy (fw, f2, live): F whose live columns are ``share`` of n (or
+    one), each with a live row, the rest of F dead: (+inf, garbage) for
+    multpath; -inf, +inf or NaN over garbage for centpath. ``ints`` draws
+    integer m/p, whose sums are exact in any order."""
+    rng = np.random.default_rng(seed)
+    mp = which == "multpath"
+    k_live = 1 if share == "one" else int(round(share * n))
+    live = np.zeros(n, bool)
+    live[rng.permutation(n)[:k_live]] = True
+    active = (rng.random((nb, n)) < 0.5) & live
+    active[rng.integers(0, nb, n), np.arange(n)] |= live
+    dead = (np.full((nb, n), INF) if mp else
+            rng.choice(np.array([-INF, INF, np.nan]), (nb, n)))
+    fw = np.where(active, rng.integers(0, 20, (nb, n)), dead)
+    f2 = (rng.integers(1, 5, (nb, n)) if ints
+          else rng.random((nb, n)) * 7)
+    f2 = np.where(active, f2, rng.random((nb, n)))
+    return fw.astype(np.float32), f2.astype(np.float32), live
+
+
+def _numpy_live(fw, finite, n, splits):
+    """Per slice, the columns with a row that is not dead, ascending."""
+    keep = np.isfinite(fw) if finite else fw != INF
+    col = keep.any(axis=0)
+    span = slice_len(n, splits)
+    return [np.nonzero(col[z * span:min(n, (z + 1) * span)])[0] + z * span
+            for z in range(splits)]
+
+
+@pytest.mark.parametrize("share", LIVE_SHARES)
+@pytest.mark.parametrize("splits", [1, 2, 3, 7])
+@pytest.mark.parametrize("n", [17, 150, 1000])
+@pytest.mark.parametrize("which", ["multpath", "centpath"])
+def test_live_k_plain_form_matches_numpy(which, n, splits, share):
+    """Each slice's live k, ascending, its count and the total, and F's
+    columns packed from the slice's first k; the rest the identity."""
+    nb = 5
+    fw, f2, live = _live_frontier(which, nb, n, share, n + splits)
+    finite = which == "centpath"
+    got = live_k_ref(torch.from_numpy(fw), torch.from_numpy(f2), splits,
+                     finite)
+    want = _numpy_live(fw, finite, n, splits)
+    span = slice_len(n, splits)
+    assert got.counts.dtype == got.idx.dtype == torch.int32
+    assert got.counts.tolist() == [len(k) for k in want] + [int(live.sum())]
+    idx, w, x = got.idx.numpy(), got.w.numpy(), got.x.numpy()
+    for z, ks in enumerate(want):
+        pos = np.arange(z * span, z * span + len(ks))
+        np.testing.assert_array_equal(idx[pos], ks)
+        np.testing.assert_array_equal(w[:, pos], fw[:, ks])
+        np.testing.assert_array_equal(x[:, pos], f2[:, ks])
+        rest = np.arange(z * span + len(ks), min(n, (z + 1) * span))
+        assert (idx[rest] == -1).all() and (x[:, rest] == 0).all()
+        assert (w[:, rest] == (-INF if finite else INF)).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", [1, 2, 4])
+@pytest.mark.parametrize("share", LIVE_SHARES)
+@pytest.mark.parametrize("nb,n", LIVE_SHAPES)
+@pytest.mark.parametrize("which", ["multpath", "centpath"])
+def test_live_k_kernel_matches_plain_on_card(which, nb, n, share, splits,
+                                             cuda):
+    """Counts bitwise the plain form's; idx and F's packed columns too, at
+    each slice's live positions; one launch."""
+    if _even_splits(splits, -(-n // BK)) != splits:
+        pytest.skip(f"{splits} slices leave one empty at n = {n}")
+    fw, f2, _ = (_t(x, cuda) if x.dtype != bool else x
+                 for x in _live_frontier(which, nb, n, share, nb + n))
+    finite = which == "centpath"
+    before = live_k_cuda.launches
+    got = live_k_cuda(fw, f2, splits, finite)
+    torch.cuda.synchronize()
+    assert live_k_cuda.launches == before + 1
+    want = live_k_ref(fw, f2, splits, finite)
+    assert torch.equal(got.counts, want.counts)
+    span = slice_len(n, splits)
+    for z in range(splits):
+        pos = slice(z * span, z * span + int(want.counts[z]))
+        assert torch.equal(got.idx[pos], want.idx[pos])
+        # NaN in a packed centpath column compares unequal to itself
+        for g, h in ((got.w, want.w), (got.x, want.x)):
+            assert torch.equal(g[:, pos].view(torch.int32),
+                               h[:, pos].view(torch.int32))
+
+
+def _product(which, fw, f2, adj, splits):
+    fn = multpath_matmul_cuda if which == "multpath" else centpath_matmul_cuda
+    return fn(fw.contiguous(), f2.contiguous(), adj.contiguous(), splits)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", [1, 2, 4])
+@pytest.mark.parametrize("nb", [1, 37, 64, 130])
+@pytest.mark.parametrize("n", [3342, 4096])
+@pytest.mark.parametrize("share", LIVE_SHARES)
+@pytest.mark.parametrize("which", ["multpath", "centpath"])
+def test_products_skip_identity_columns_bitwise_on_card(which, share, n, nb,
+                                                        splits, cuda):
+    """F with identity columns inserted at random positions (garbage m/p
+    under them, centpath's as -inf, +inf and NaN) and any rows of A there:
+    every output field bit for bit the product over the live columns
+    alone, and the plain version's (w, c bitwise, m rtol 1e-6, p 1e-5).
+    n = 3342 takes the 4-byte copies, 4096 the 16-byte ones. With S > 1
+    the two products slice different k ranges, so m and p are integers
+    there, exact in any order; at S = 1 they are any floats."""
+    fw, f2, live = _live_frontier(which, nb, n, share, n + nb * 7 + splits,
+                                  ints=splits > 1)
+    rng = np.random.default_rng(nb + splits)
+    adj = np.where(rng.random((n, 200)) < 0.3,
+                   rng.integers(1, 10, (n, 200)), INF).astype(np.float32)
+    fw, f2, adj = (_t(x, cuda) for x in (fw, f2, adj))
+    keep = torch.from_numpy(np.nonzero(live)[0]).to(cuda)
+    got = _product(which, fw, f2, adj, splits)
+    k0 = len(keep)
+    s0 = splits if _even_splits(splits, -(-k0 // BK)) == splits else 1
+    alone = _product(which, fw[:, keep], f2[:, keep], adj[keep], s0)
+    torch.cuda.synchronize()
+    for x, y in zip(got, alone):
+        assert torch.equal(x, y)
+    if which == "multpath":
+        want = ref.multpath_matmul_ref(fw, f2, adj)
+        assert torch.equal(got[0], want[0])
+        torch.testing.assert_close(got[1], want[1], rtol=1e-6, atol=0.0)
+    else:
+        want = ref.centpath_matmul_ref(fw, f2, adj)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])
+        torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["multpath", "centpath"])
+def test_products_count_k_and_live_k_on_card(which, cuda):
+    """Under ``torch.profiler`` each product adds its n to ``products.k``
+    and its live columns to ``products.k_live`` and to its own kind's
+    ``products.k_live.<kernel>``; untraced, nothing."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import tracing
+
+    fw, f2, live = (_t(x, cuda) if x.dtype != bool else x
+                    for x in _live_frontier(which, 64, 4096, 0.4, 3))
+    adj = torch.ones((4096, 64), device=cuda)
+    tracing.snapshot()
+    _product(which, fw, f2, adj, None)
+    assert tracing.snapshot(clear=False).counters == {}
+    with profile(activities=[ProfilerActivity.CPU]):
+        for _ in range(2):
+            _product(which, fw, f2, adj, None)
+    got = tracing.snapshot().counters
+    assert got == {"products.k": 2 * 4096,
+                   "products.k_live": 2 * int(live.sum()),
+                   f"products.k_live.{which}_mm": 2 * int(live.sum())}

@@ -198,3 +198,74 @@ def test_k_slices_tile_the_contraction_in_order(n, splits):
     for (a0, a1), (b0, b1) in zip(bounds, bounds[1:]):
         assert a1 == b0 and a0 <= a1
         assert a0 % BK == 0 or a0 == n  # slices past k are empty
+
+
+# -- the live-k walk ---------------------------------------------------------
+# Before each launch on the card, ``kernels/live_k.py`` packs each slice's
+# live columns of F (a column is dead where every row's F.w is +inf for
+# multpath, not finite for centpath), and the kernel walks a slice's live k
+# alone in tiles of BK, in ascending order. These tests hold that walk,
+# emulated, bitwise to the full walk at the same S in every field, with
+# non-integer m and p (so the order of their sums shows), dead columns that
+# carry garbage in m/p (ties at the identity that the epilogue must drop)
+# and any weights in A's dead rows.
+SHARES = [0.0, "one", 0.01, 0.4, 1.0]
+
+
+def _with_dead_columns(which, nb, n, n2, share, seed):
+    """(fw, f2, adj, live): F whose live columns are ``share`` of n (or one
+    column), each with at least one live row, the rest of F the identity
+    (centpath's as -inf, +inf and NaN) over garbage m/p; A random in every
+    row."""
+    rng = np.random.default_rng(seed)
+    mp = which == "multpath"
+    k_live = 1 if share == "one" else int(round(share * n))
+    live = np.zeros(n, bool)
+    live[rng.permutation(n)[:k_live]] = True
+    active = (rng.random((nb, n)) < 0.5) & live
+    active[rng.integers(0, nb, n), np.arange(n)] |= live
+    dead_w = (np.full((nb, n), INF) if mp else
+              rng.choice(np.array([-INF, INF, np.nan], np.float32), (nb, n)))
+    fw = np.where(active, rng.integers(0, 20, (nb, n)), dead_w)
+    f2 = np.where(active, rng.random((nb, n)) * 7, rng.random((nb, n)))
+    adj = np.where(rng.random((n, n2)) < 0.3,
+                   rng.integers(1, 10, (n, n2)), INF)
+    return (_t(fw), _t(f2), _t(adj), torch.from_numpy(live))
+
+
+@pytest.mark.parametrize("share", SHARES)
+@pytest.mark.parametrize("splits", [1, 2, 4])
+@pytest.mark.parametrize("which", ["multpath", "centpath"])
+def test_live_k_walk_is_bitwise_the_full_walk(which, splits, share):
+    """Each slice's live k, packed by ``live_k_ref`` and walked in tiles of
+    BK, folds to the full sweep's outputs bitwise, in w, m, p and c, at
+    n = 150 (a ragged last slice)."""
+    from repro_torch.kernels.live_k import live_k_ref
+
+    nb, n, n2 = 8, 150, 40
+    fw, f2, adj, live = _with_dead_columns(which, nb, n, n2, share,
+                                           splits * 10 + len(str(share)))
+    packed = live_k_ref(fw, f2, splits, finite=which == "centpath")
+    assert int(packed.counts[-1]) == int(live.sum())
+    full, walked = [], []
+    for z, (k0, k1) in enumerate(k_slices(n, splits)):
+        full.append(_emulate_slice(which, fw[:, k0:k1], f2[:, k0:k1],
+                                   adj[k0:k1]))
+        cnt = int(packed.counts[z])
+        ks = packed.idx[k0:k0 + cnt].long()
+        assert torch.equal(ks, torch.nonzero(live[k0:k1]).flatten() + k0)
+        walked.append(_emulate_slice(which, packed.w[:, k0:k0 + cnt],
+                                     packed.x[:, k0:k0 + cnt], adj[ks]))
+    for x, y in zip(_fold(which, walked), _fold(which, full)):
+        assert torch.equal(x, y)
+    _check(which, _fold(which, walked), _plain(which, fw, f2, adj, 16))
+
+
+@pytest.mark.parametrize("n", [1, 15, 16, 17, 150, 3342])
+@pytest.mark.parametrize("splits", [1, 2, 3, 7, 64])
+def test_live_k_slices_are_the_kernels_slices(n, splits):
+    from repro_torch.kernels import live_k
+
+    span = live_k.slice_len(n, splits)
+    assert [(min(n, z * span), min(n, (z + 1) * span))
+            for z in range(splits)] == k_slices(n, splits)

@@ -16,6 +16,9 @@
   then: a reader of a finished profile reads that profile's alone. The
   child count kernel's ``child_count.launch`` counter follows the same
   rule.
+* ``count`` by a 0-d integer tensor keeps the tensor unread and adds its
+  value at the snapshot; off, it records nothing. The products'
+  ``products.k`` and ``products.k_live`` counters are counted so.
 * On a one-rank gloo mesh, an exact mesh batch records ``batch ⊃ {mfbf,
   mfbr ⊃ child_count}`` once each (``child_count`` with ``dense`` 0 and
   ``mesh`` 1), one ``mesh.relax`` a local product with its shape, one
@@ -244,6 +247,58 @@ def test_child_count_launch_counter_keeps_one_stretch():
     profiled(1)
     assert tracing.snapshot().counters == {cc.LAUNCH_COUNTER: 1}
     assert cc.child_count_cuda.launches == before + 5
+
+
+def test_count_by_a_tensor_is_read_at_the_snapshot():
+    """A 0-d integer tensor is summed into its counter at the snapshot,
+    with host ints under the same name; it is read once even where the
+    snapshot keeps the stretch; with the profiler off nothing is kept."""
+    tracing.snapshot()
+    k = torch.tensor(7, dtype=torch.int32)
+    tracing.count("t", k)  # untraced
+    assert tracing.snapshot(clear=False) == tracing.Snapshot([], {})
+    with profile(activities=[ProfilerActivity.CPU]):
+        tracing.count("t", k)
+        tracing.count("t", torch.tensor([5], dtype=torch.int64)[0])
+        tracing.count("t", 2)
+        k += 100  # kept, not copied: the value at the snapshot counts
+    assert tracing.snapshot(clear=False).counters == {"t": 107 + 5 + 2}
+    assert tracing.snapshot().counters == {"t": 114}
+    assert tracing.snapshot().counters == {}
+
+
+def test_products_count_their_contraction_and_its_live_columns():
+    """``live_k.count_contraction``, which both products call after each
+    launch on the card, adds n to ``products.k`` and the packing's total,
+    ``counts[-1]``, to ``products.k_live`` and to the product's own
+    ``products.k_live.<kernel>`` (here of the plain packing on the CPU); a
+    new profile drops the last one's."""
+    from repro_torch.kernels import live_k
+
+    fw = torch.full((3, 40), float("inf"))
+    fw[0, [1, 17, 39]] = 2.0
+    fw[2, 17] = 0.0
+    packed = live_k.live_k_ref(fw, torch.zeros_like(fw), 2, finite=False)
+    assert packed.counts.tolist() == [2, 1, 3]
+
+    def profiled(k):
+        with profile(activities=[ProfilerActivity.CPU]):
+            for i in range(k):
+                live_k.count_contraction(KINDS[i % 2], 40, packed.counts)
+
+    KINDS = ("multpath_mm", "centpath_mm")
+    tracing.snapshot()
+    live_k.count_contraction("multpath_mm", 40, packed.counts)  # untraced
+    profiled(3)
+    assert tracing.snapshot(clear=False).counters == {
+        live_k.K_COUNTER: 120, live_k.K_LIVE_COUNTER: 9,
+        "products.k_live.multpath_mm": 6, "products.k_live.centpath_mm": 3}
+    # untraced: ends the stretch
+    live_k.count_contraction("centpath_mm", 40, packed.counts)
+    profiled(1)
+    assert tracing.snapshot().counters == {
+        live_k.K_COUNTER: 40, live_k.K_LIVE_COUNTER: 3,
+        "products.k_live.multpath_mm": 3}
 
 
 # -- the mesh's distributed step ------------------------------------------------
