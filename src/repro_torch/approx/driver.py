@@ -1,7 +1,14 @@
 """Adaptive approximate-BC estimator (λ moments, CIs, stopping rule).
 
 A copy of ``repro/approx/driver.py`` without the deprecated ``approx_bc``
-shim. The sampling loop lives in ``repro_torch.bc.solve``: it pulls padded
+shim, with the same numbers: the halfwidths are evaluated ``CHUNK``
+vertices at a time and a top k is found by a partition (falling back to
+the sort where the k-th estimate ties, which never separates), which at a
+served graph's size
+(n = 646,043) turns a check's page faults and full sorts into in-cache
+passes. ``stopping_check`` can also evaluate its test on a card (the
+service's): the same decision, the host deciding near the threshold.
+The sampling loop lives in ``repro_torch.bc.solve``: it pulls padded
 source batches from a strategy (``approx.sampling``), pushes them through
 an executor and folds the per-vertex dependency moments into the
 ``LambdaEstimator`` defined here, testing ``stopping_check`` at epoch
@@ -23,21 +30,54 @@ every vertex outside it).
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional, Tuple
 
 import numpy as np
 
 from repro_torch.approx import sampling as S
 
+# Vertices a pass of ``halfwidth_normalized`` works on at once: each
+# pass's temporaries stay in cache instead of being fresh pages of
+# whole-graph size (at n = 646,043 those page faults were most of a
+# check's time, and its noise).
+CHUNK = 1 << 14
+
+
+def _top_set(lam: np.ndarray, k: int) -> Optional[np.ndarray]:
+    """The ids of the k largest estimates by one partition, when the k-th
+    largest is above the (k+1)-th: then every sort puts the same k first.
+    None when they tie (or for k outside (0, n))."""
+    n = lam.shape[0]
+    if not 0 < k < n:
+        return None
+    idx = np.argpartition(lam, (n - k - 1, n - k))
+    if lam[idx[n - k]] > lam[idx[n - k - 1]]:
+        return idx[n - k:]
+    return None
+
+
+def _topk_ids(lam: np.ndarray, k: int) -> np.ndarray:
+    """Vertex ids of the k largest estimates, descending (as the reversed
+    ``np.argsort`` orders them, also among ties)."""
+    top = _top_set(lam, k)
+    if top is not None:
+        vals = lam[top]
+        if np.unique(vals).size == k:  # distinct: one order
+            return top[np.argsort(vals)[::-1]]
+    return np.argsort(lam)[::-1][:k]
+
 
 def _topk_separated(lam: np.ndarray, halfwidth: np.ndarray, k: int) -> bool:
     """True iff the k largest estimates are CI-separated from the rest."""
     if k >= lam.shape[0]:
         return True
-    order = np.argsort(lam)[::-1]
-    lo = lam[order[:k]] - halfwidth[order[:k]]
-    hi = lam[order[k:]] + halfwidth[order[k:]]
-    return bool(lo.min() > hi.max())
+    top = _top_set(lam, k)
+    if top is None:  # a tie v at the k-th: lo.min() <= v <= hi.max()
+        return False
+    hi = lam + halfwidth
+    hi[top] = -np.inf
+    return bool((lam[top] - halfwidth[top]).min() > hi.max())
 
 
 @dataclasses.dataclass
@@ -56,8 +96,7 @@ class ApproxResult:
 
     def topk(self, k: int) -> np.ndarray:
         """Vertex ids of the k largest estimates, descending."""
-        order = np.argsort(self.lam)[::-1]
-        return order[:k]
+        return _topk_ids(self.lam, k)
 
     def topk_separated(self, k: int) -> bool:
         """True iff the top-k set is CI-separated from the rest."""
@@ -107,8 +146,8 @@ class LambdaEstimator:
     def _norm(self) -> float:
         return float(max(self.n - 2, 1))
 
-    def halfwidth_normalized(self, delta: Optional[float] = None
-                             ) -> np.ndarray:
+    def halfwidth_normalized(self, delta: Optional[float] = None,
+                             at: Optional[np.ndarray] = None) -> np.ndarray:
         """CI halfwidth of x̄(v) on the [0, 1] normalized-dependency scale.
 
         The failure budget (``delta`` overrides ``self.delta`` — used by
@@ -122,18 +161,44 @@ class LambdaEstimator:
         mistaken for a converged one (``stopping_check`` sees an
         infinite max halfwidth, and a retired ``ApproxResult`` honestly
         reports unbounded CIs instead of finite garbage).
+
+        ``at`` (vertex ids) gives the halfwidths of those vertices alone,
+        each what the whole array holds there.
         """
         if self.tau < 2:
-            return np.full(self.n, np.inf)
+            return np.full(self.n if at is None else len(at), np.inf)
         d = self.delta if delta is None else delta
         c = self._norm()
-        x1, x2 = self.s1 / c, self.s2 / (c * c)
-        mean = x1 / self.tau
-        var = np.maximum(x2 / self.tau - mean * mean, 0.0)
-        delta_v = S.allocate_delta(var, d)
         fn = (S.bernstein_halfwidth if self.rule == "bernstein"
               else S.normal_halfwidth)
-        return fn(x1, x2, self.tau, delta_v)
+        # ``allocate_delta`` and ``fn`` over the whole graph, evaluated
+        # CHUNK vertices at a time: every element takes the same
+        # operations, and var is summed whole, so the result is bitwise
+        # the whole-array evaluation's.
+        n, tau = self.n, self.tau
+        var = np.empty(n)
+        parts = [slice(lo, lo + CHUNK) for lo in range(0, n, CHUNK)]
+
+        def scaled(sl):
+            return self.s1[sl] / c, self.s2[sl] / (c * c)
+
+        for sl in parts:
+            x1, x2 = scaled(sl)
+            mean = x1 / tau
+            var[sl] = np.maximum(x2 / tau - mean * mean, 0.0)
+        total = float(var.sum())
+
+        def halfwidth(sl):
+            x1, x2 = scaled(sl)
+            return fn(x1, x2, tau, S.allocate_delta(var[sl], d, n=n,
+                                                    total=total))
+
+        if at is not None:
+            return halfwidth(at)
+        out = np.empty(n)
+        for sl in parts:
+            out[sl] = halfwidth(sl)
+        return out
 
     def lam_scaled(self) -> np.ndarray:
         """λ̂(v) = (n/τ)·S1(v) — unnormalized λ units.
@@ -145,6 +210,15 @@ class LambdaEstimator:
         is quoted on.
         """
         return self.s1 * (self.n / max(self.tau, 1))
+
+    def top(self, k: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """(ids, λ̂, halfwidth) of the k largest estimates, descending:
+        ``result().topk(k)`` and ``result()``'s ``lam`` and ``halfwidth``
+        at those ids, without the halfwidths of the whole graph."""
+        lam = self.lam_scaled()
+        ids = _topk_ids(lam, k)
+        return ids, lam[ids], self.hw_scaled(self.halfwidth_normalized(
+            at=ids))
 
     def hw_scaled(self, hw_normalized: np.ndarray) -> np.ndarray:
         """Normalized-scale CI halfwidth → λ units (λ̂ = n·(n-2)·x̄)."""
@@ -246,16 +320,25 @@ def choose_sample_batch(n: int, m_edges: int, *, p: int = 1,
 
 
 def stopping_check(est: "LambdaEstimator", eps: float, topk: Optional[int],
-                   check_index: int):
+                   check_index: int, device=None):
     """One sequential convergence test; returns (stop, hw_normalized).
 
     The failure budget for the *sequence* of epoch-boundary checks is
     split geometrically — check i tests at level δ/2^(i+1), Σ_i δ_i ≤ δ —
     so repeatedly peeking at the CIs does not inflate the overall failure
     probability (the per-epoch budget split of 1910.11039 Alg. 1).
-    Shared by ``bc.solve`` and ``bc.refine``.
+    Shared by ``bc.solve``, ``bc.refine`` and the service.
+
+    ``device`` (a torch device; the service passes its card) evaluates the
+    test there (``_device_check``) and returns ``(stop, None)``: the same
+    decision as on the host, whose evaluation it falls back to, returning
+    its halfwidths, where the two could disagree.
     """
     delta_check = est.delta / (2.0 ** (check_index + 1))
+    if device is not None:
+        stop = _device_check(est, eps, topk, delta_check, device)
+        if stop is not None:
+            return stop, None
     hw = est.halfwidth_normalized(delta=delta_check)
     est.hw_history.append((int(est.tau), float(hw.max())))
     if hw.max() <= eps:
@@ -263,4 +346,70 @@ def stopping_check(est: "LambdaEstimator", eps: float, topk: Optional[int],
     if topk is not None and est.tau >= 2:
         return _topk_separated(est.lam_scaled(), est.hw_scaled(hw), topk), hw
     return False, hw
+
+
+# Relative margin within which ``_device_check`` leaves a decision to the
+# host. The device's float64 halfwidths differ from numpy's only by the
+# rounding of ``log`` and the summation order of the variance total, a
+# relative 1e-14 or less, so outside this margin the two decide alike.
+DEVICE_MARGIN = 1e-9
+
+
+def _device_check(est: "LambdaEstimator", eps: float, topk: Optional[int],
+                  delta: float, device) -> Optional[bool]:
+    """``stopping_check``'s test at ``delta`` evaluated on ``device``, in
+    float64 and with the host's operations in the host's order, recording
+    the device's maximum halfwidth; None (nothing recorded) where the
+    host must decide: fewer than two samples, or a maximum or a top-k
+    separation within ``DEVICE_MARGIN`` of its threshold."""
+    import torch
+
+    n, tau, c = est.n, est.tau, est._norm()
+    if tau < 2:
+        return None
+    s1 = torch.from_numpy(est.s1).to(device)
+    x1 = s1 / c
+    x2 = torch.from_numpy(est.s2).to(device) / (c * c)
+    mean = x1 / tau
+    var = torch.clamp(x2 / tau - mean * mean, min=0.0)
+    total = float(var.sum())
+    if total <= 0.0:
+        delta_v = torch.full_like(var, delta / n)
+    else:
+        delta_v = delta * (0.5 / n + 0.5 * var / total)
+    var = var * tau / (tau - 1)  # the unbiased variance, as the rules take
+    if est.rule == "bernstein":
+        log_term = torch.log(3.0 / delta_v)
+        hw = (torch.sqrt(2.0 * var * log_term / tau)
+              + 3.0 * log_term / tau)
+    else:  # normal: sampling._erfinv's approximation
+        y = torch.clamp(1.0 - delta_v, -(1 - 1e-12), 1 - 1e-12)
+        a = 0.147
+        ln1my2 = torch.log(1.0 - y * y)
+        t1 = 2.0 / (math.pi * a) + ln1my2 / 2.0
+        z = math.sqrt(2.0) * (torch.sign(y) * torch.sqrt(
+            torch.sqrt(t1 * t1 - ln1my2 / a) - t1))
+        hw = z * torch.sqrt(var / tau) + 1.0 / tau
+    top = float(hw.max())
+    if abs(top - eps) <= DEVICE_MARGIN * eps:
+        return None
+    stop = top <= eps
+    if not stop and topk is not None and topk >= n:
+        stop = True
+    elif not stop and topk is not None and topk > 0:
+        lam = s1 * (n / tau)
+        h = hw * n * c
+        vals, ids = torch.topk(lam, topk + 1)
+        if bool(vals[topk - 1] > vals[topk]):  # else a tie: not separated
+            ids = ids[:topk]
+            lo = float((lam[ids] - h[ids]).min())
+            hi = lam + h
+            hi[ids] = -math.inf
+            hi = float(hi.max())
+            scale = max(float(lam.max()), float(h.max()))
+            if abs(lo - hi) <= DEVICE_MARGIN * scale:
+                return None
+            stop = lo > hi
+    est.hw_history.append((int(tau), top))
+    return stop
 

@@ -53,7 +53,8 @@ def epoch_schedule(tau0: int, growth: float = 2.0) -> Iterator[int]:
         t = max(t + 1, int(t * growth))
 
 
-def allocate_delta(var: np.ndarray, delta: float) -> np.ndarray:
+def allocate_delta(var: np.ndarray, delta: float, *, n: Optional[int] = None,
+                   total: Optional[float] = None) -> np.ndarray:
     """Non-uniform per-vertex failure budget (the KADABRA δ-splitting).
 
     Half of δ is spread uniformly; the other half proportionally to the
@@ -65,11 +66,15 @@ def allocate_delta(var: np.ndarray, delta: float) -> np.ndarray:
     allocation is estimated from the same samples the CI is computed on,
     so the bound is rigorous under a two-phase reading (allocate on epoch
     e, test on epoch e+1) and a practical approximation as implemented.
+
+    ``n`` and ``total`` (the whole graph's vertex count and ``var.sum()``)
+    evaluate the split on a slice of the vertices' variances, element for
+    element what the whole array gives.
     """
-    n = var.shape[0]
-    total = float(var.sum())
+    n = var.shape[0] if n is None else n
+    total = float(var.sum()) if total is None else total
     if total <= 0.0:
-        return np.full(n, delta / n)
+        return np.full(var.shape[0], delta / n)
     return delta * (0.5 / n + 0.5 * var / total)
 
 

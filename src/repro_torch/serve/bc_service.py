@@ -108,7 +108,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, tracing
 from repro_torch.bc import (PACKS, TIER_DEADLINE_S, TIERS, AdaptiveSampler,
                             ApproxCheckpoint, BatchAssembler, BatchExecutor,
                             BCPlan, BCQuery, ExecutionConfig,
@@ -204,6 +204,10 @@ class BCResponse:
     # service runs with checkpoints=True (the result cache's refine
     # path). Host-side only — never serialized onto the wire.
     checkpoint: Optional[ApproxCheckpoint] = None
+    # (n_samples,) int32: the sources the estimate swept, in the order
+    # they drained (None for fixed-point metrics, which sample nothing).
+    # Host-side only, like ``checkpoint``.
+    sources: Optional[np.ndarray] = None
 
     def to_json(self) -> Dict:
         """JSON wire form (the gateway's result payload).
@@ -213,7 +217,8 @@ class BCResponse:
         ``np.float64``/``np.int64`` leaking out of the estimator — and
         Python's shortest-repr float serialization round-trips each
         float64 *exactly*, so cached payloads compare bitwise. The
-        ``checkpoint`` (host-side numpy state) stays off the wire.
+        ``checkpoint`` and ``sources`` (host-side numpy state) stay off
+        the wire.
         """
         return {
             "rid": int(self.rid),
@@ -273,6 +278,7 @@ class _Job:
     epoch_idx: Optional[int] = None  # index of the epoch backlog belongs to
     backlog: np.ndarray = dataclasses.field(
         default_factory=lambda: np.zeros(0, np.int32))
+    swept: List[np.ndarray] = dataclasses.field(default_factory=list)
 
 
 class BCService:
@@ -323,6 +329,11 @@ class BCService:
         # Without a mesh the service runs on its one device, however many
         # cards the host has: a mesh of ranks is only ever the caller's.
         self._n_devices = 1 if mesh is None else None
+        # On a card the epoch-boundary tests run there, the host's numpy
+        # passes over the whole graph left to the CPU path (the same
+        # decisions: ``approx.driver.stopping_check``).
+        self._check_device = (self.device if self.device.type == "cuda"
+                              else None)
         # Mesh serving: the control group rank 0 mirrors its executors'
         # calls on (host objects, whatever the mesh's data backend), the
         # graphs already announced to the followers, rank 0's count of
@@ -610,6 +621,7 @@ class BCService:
             converged=True, seconds=now - t0, plan=pl,
             tier=req.priority, latency_s=now - q.t_submit,
             digest=self.digest(req.graph)))
+        tracing.count("serve.retired")
 
     def _admit(self) -> None:
         # Fixed-point metrics bypass the slot pool entirely — they are
@@ -656,23 +668,26 @@ class BCService:
 
     def _retire(self, i: int, converged: bool) -> None:
         job = self.slots[i]
-        res = job.est.result(n_epochs=job.n_epochs, converged=converged)
-        ids = res.topk(job.req.k)
+        # What est.result() gives at its top k, without the whole graph's
+        # halfwidths.
+        ids, lam, hw = job.est.top(job.req.k)
         now = time.monotonic()
         # checkpoints=True: snapshot the (S1, S2, τ) sums + sampling
         # stream so a cached answer stays *resumable* — the gateway's
         # looser-ε cache hits refine from here instead of resampling.
-        ckpt = (checkpoint_from(job.est, job.sampler, n_epochs=res.n_epochs)
+        ckpt = (checkpoint_from(job.est, job.sampler, n_epochs=job.n_epochs)
                 if self.checkpoints else None)
         self.finished.append(BCResponse(
             rid=job.req.rid, graph=job.req.graph, topk=ids.tolist(),
-            lam=res.lam[ids], halfwidth=res.halfwidth[ids],
-            n_samples=res.n_samples, n_epochs=res.n_epochs,
-            converged=res.converged,
+            lam=lam, halfwidth=hw, n_samples=job.est.tau,
+            n_epochs=job.n_epochs, converged=converged,
             seconds=now - job.t0, plan=job.plan,
             tier=job.req.priority, latency_s=now - job.t_submit,
-            digest=self.digest(job.req.graph), checkpoint=ckpt))
+            digest=self.digest(job.req.graph), checkpoint=ckpt,
+            sources=(np.concatenate(job.swept) if job.swept
+                     else np.zeros(0, np.int32))))
         self.slots[i] = None
+        tracing.count("serve.retired")
 
     # ------------------------------------------------------------------
     def _run_unfused(self, ex: BatchExecutor, job: _Job,
@@ -683,10 +698,14 @@ class BCService:
         done = 0
         for lo in range(0, sources.shape[0], nb):
             chunk = sources[lo:lo + nb]
-            s1, s2, _ = ex.step(chunk, np.ones(chunk.shape[0], bool),
+            k = int(chunk.shape[0])
+            s1, s2, _ = ex.step(chunk, np.ones(k, bool),
                                 metric=job.req.metric, hops=job.req.hops)
-            job.est.update(s1, s2, int(chunk.shape[0]))
-            done += int(chunk.shape[0])
+            with tracing.span("serve.fold", slots=1):
+                job.est.update(s1, s2, k)
+            tracing.count("serve.sources", k)
+            tracing.count("serve.pad_rows", ex.n_b - k)
+            done += k
         return done
 
     def _run_fused(self, name: str, ex: BatchExecutor,
@@ -707,8 +726,13 @@ class BCService:
             s1, s2, nr = ex.step_segmented(fb.sources, fb.valid,
                                            fb.slot_ids, fb.n_slots,
                                            metrics=metrics, hops=hops)
-            for slot, (r1, r2, _, cnt) in scatter(fb, (s1, s2, nr)).items():
-                self.slots[slot].est.update(r1, r2, cnt)
+            with tracing.span("serve.fold", slots=fb.n_slots):
+                for slot, (r1, r2, _, cnt) in scatter(
+                        fb, (s1, s2, nr)).items():
+                    self.slots[slot].est.update(r1, r2, cnt)
+            tracing.count("serve.sources", fb.n_valid)
+            tracing.count("serve.pad_rows",
+                          ex.bucket_for(fb.sources.shape[0]) - fb.n_valid)
             done += fb.n_valid
         return done
 
@@ -734,7 +758,20 @@ class BCService:
            sequential ``stopping_check`` as ``repro_torch.bc.solve``.
 
         Returns the number of source samples processed this tick.
+
+        Under ``torch.profiler`` the tick is a ``serve.tick`` span of
+        ``repro_torch.tracing`` (active, queued: the slots and queue it
+        starts from); inside it each batch's estimator updates are a
+        ``serve.fold`` span (slots) and each epoch-boundary test a
+        ``serve.stop_check`` span (tau, eps). The counters
+        ``serve.sources`` and ``serve.pad_rows`` add each batch's valid
+        and padding rows, ``serve.retired`` each finished request.
         """
+        with tracing.span("serve.tick", self.device, active=self.active,
+                          queued=len(self.queue)):
+            return self._tick()
+
+    def _tick(self) -> int:
         self._admit()
         now = time.monotonic()
         # -- refill: one epoch of demand per idle-backlog slot ----------
@@ -796,7 +833,9 @@ class BCService:
                 for i, srcs in dem:
                     processed += self._run_unfused(ex, self.slots[i], srcs)
             for i, rows in dem:
-                t = self.slots[i].req.tenant
+                job = self.slots[i]
+                job.swept.append(rows)
+                t = job.req.tenant
                 self._served[t] = self._served.get(t, 0) + int(rows.size)
         # -- epoch boundary: same sequential test as repro_torch.bc.solve
         # (one hw pass per epoch, δ split across checks) so CLI and
@@ -809,7 +848,10 @@ class BCService:
             ei = job.epoch_idx
             job.n_epochs = ei + 1
             job.epoch_idx = None
-            done, _ = stopping_check(job.est, job.req.eps, job.req.k, ei)
+            with tracing.span("serve.stop_check", tau=job.est.tau,
+                              eps=job.req.eps):
+                done, _ = stopping_check(job.est, job.req.eps, job.req.k, ei,
+                                         device=self._check_device)
             if done:
                 job.sampler.stop()
                 self._retire(i, converged=True)

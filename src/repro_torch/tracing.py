@@ -26,9 +26,9 @@ event on the current stream at each end; the device interval between the
 two, idle time inside the span included, is read by ``snapshot()``,
 which synchronizes once. On the CPU the device interval is None.
 
-Attributes are host ints, or short names, that the caller holds already:
-the recorder reads no device value and adds no sync. A count by a device
-scalar (a length a kernel wrote, say) is kept as the tensor;
+Attributes are host ints or floats, or short names, that the caller holds
+already: the recorder reads no device value and adds no sync. A count by a
+device scalar (a length a kernel wrote, say) is kept as the tensor;
 ``snapshot()`` reads all of them in one copy a device, after its
 synchronize. One recorder serves the process, as the profiler does, and
 it holds one profiled stretch: a span or count that finds the profiler
@@ -63,7 +63,7 @@ class Span:
     id: int
     parent: Optional[int]
     name: str
-    attrs: Dict[str, Union[int, str]]
+    attrs: Dict[str, Union[int, float, str]]
     start_ns: int  # host, epoch nanoseconds
     end_ns: int
     device_ms: Optional[float] = None  # None on the CPU

@@ -5,7 +5,10 @@
   a ``state()`` snapshot resumes both the same way.
 * ``hoeffding_budget``, ``allocate_delta``, both halfwidth rules, the
   estimator and ``stopping_check`` give the reference's numbers exactly
-  from the same ``(S1, S2, τ)`` (the same numpy code in both packages).
+  from the same ``(S1, S2, τ)`` (the same numpy expressions; the port
+  evaluates the estimator's halfwidths ``CHUNK`` vertices at a time and
+  finds a top k by a partition, also held to the reference past one
+  chunk and across a tie at the k-th estimate).
 * The moments and segmented batch steps of ``core.mfbc`` match
   ``repro.core.mfbc`` at rtol 1e-5, atol 1e-8, with ``n_reach`` bitwise,
   and the segmented fold is bitwise a fold of each slot's rows alone.
@@ -164,6 +167,44 @@ def test_estimator_and_stopping_check_match_reference(rule, topk, eps):
     np.testing.assert_array_equal(res.topk(5), rres.topk(5))
     assert res.topk_separated(3) == rres.topk_separated(3)
     assert ours.converged() == ref.converged()
+
+
+@pytest.mark.parametrize("rule", ["bernstein", "normal"])
+@pytest.mark.parametrize("n,tie", [(2 * tdrv.CHUNK + 17, False),
+                                   (tdrv.CHUNK + 1, True),
+                                   (3 * tdrv.CHUNK, True)])
+def test_estimator_over_several_chunks_matches_reference(rule, n, tie):
+    """Past ``CHUNK`` vertices the halfwidths are evaluated a chunk at a
+    time and the top k found by a partition: still bitwise the reference's
+    whole-array numbers and its sort's order, also where the k-th and
+    (k+1)-th estimates tie."""
+    rng = np.random.default_rng(n)
+    ours = tdrv.LambdaEstimator(n, 0.05, 0.1, rule)
+    ref = jdrv.LambdaEstimator(n, 0.05, 0.1, rule)
+    for i in range(3):
+        tau = 8 << i
+        d = rng.pareto(1.5, (tau, n)) * (rng.random((tau, n)) < 0.5)
+        s1, s2 = d.sum(axis=0), (d * d).sum(axis=0)
+        if tie and i == 2:  # the 10th and 11th estimates equal
+            order = np.argsort(s1)[::-1]
+            s1[order[10]] = s1[order[9]]
+        ours.update(s1, s2, tau)
+        ref.update(s1, s2, tau)
+        stop, hw = tdrv.stopping_check(ours, 0.05, 10, i)
+        rstop, rhw = jdrv.stopping_check(ref, 0.05, 10, i)
+        assert stop == rstop
+        np.testing.assert_array_equal(hw, rhw)
+    np.testing.assert_array_equal(ours.halfwidth_normalized(delta=1e-3),
+                                  ref.halfwidth_normalized(delta=1e-3))
+    res, rres = (e.result(n_epochs=3, converged=False) for e in (ours, ref))
+    np.testing.assert_array_equal(res.halfwidth, rres.halfwidth)
+    for k in (1, 10, 11):
+        ids = rres.topk(k)
+        np.testing.assert_array_equal(res.topk(k), ids)
+        assert res.topk_separated(k) == rres.topk_separated(k)
+        top = ours.top(k)  # the service's answer: the same numbers
+        for got, want in zip(top, (ids, rres.lam[ids], rres.halfwidth[ids])):
+            np.testing.assert_array_equal(got, want)
 
 
 def test_few_samples_never_converge_like_reference():
